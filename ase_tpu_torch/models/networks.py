@@ -6,7 +6,7 @@ Layer widths, activations and heads are the reference's: the actor is a
 style net (latent -> 512 -> 256 -> tanh style vector) concatenated with the
 observation into the main MLP; the critic sees obs + latent; the encoder
 shares the discriminator trunk and L2-normalizes its head. Weights come
-from ``learning.checkpoint.load_ase_llc`` (or torch's default init).
+from ``learning.checkpoint.load_ase`` (or torch's default init).
 """
 
 from __future__ import annotations
@@ -82,6 +82,8 @@ def build_ase_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int,
     net = params["network"]
     if net["enc"].get("separate", False):
         raise NotImplementedError("a separate encoder MLP is not ported yet")
+    if params.get("config", {}).get("mixed_precision", False):
+        raise NotImplementedError("mixed_precision (bf16 matmuls) is not ported yet")
     return ASENetwork(
         obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
         latent_dim=latent_dim, units=tuple(net["mlp"]["units"]),

@@ -6,10 +6,14 @@ Phases, each printed with its wall time against its budget:
 
 1. device  -- the card's name and power limit; no card exits non-zero.
 2. build   -- a fresh ase_tpu_torch/_build/, nvcc of every CUDA source with
-              -Xptxas -v (registers, stack, spills printed).
+              -Xptxas -v (registers, stack, spills of every kernel instance
+              printed; the engine's n=37 instance of chol_forward must use
+              no stack), and the forward kernel's launch shape and
+              occupancy (at least 32 warps per SM at n=37).
 3. kernels -- every kernel of the player path held against its plain
-              PyTorch version on the card at three sizes (the engine's
-              n=37, m=72, m2=1, B=4096; a ragged B=129; n=8), with its
+              PyTorch version on the card at four sizes (the engine's
+              n=37, m=72, m2=1, B=4096; the factor-dominated m=1 at
+              B=4096; a ragged B=129; n=8), with its
               device time, its bound, the plain version's device time and a
               library yardstick's (CUDA events around a CUDA graph of 20
               calls, so host work in a wrapper cannot enter a time).
@@ -126,19 +130,61 @@ def device_phase():
     return card, name
 
 
+def _ptxas_report(text):
+    """{kernel: (stack/spill line, registers line)} from ``-Xptxas -v`` output,
+    with the template instances named as in the source."""
+    import re
+
+    def pretty(sym):
+        k = re.search(r"(chol_forward_kernel|back_solve_kernel)(?:ILi(\d+)EE)?", sym)
+        if k is None:
+            return sym
+        return k.group(1) + (f"<{k.group(2)}>" if k.group(2) is not None else "")
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)", line)
+        if m:
+            cur = pretty(m.group(1))
+            out.setdefault(cur, ["", ""])
+        elif cur and "stack frame" in line:
+            out[cur][0] = line.strip()
+        elif cur and "Used" in line:
+            out[cur][1] = line.split(":", 1)[-1].strip()
+    return out
+
+
 def build_phase():
-    from ase_tpu_torch.ops import cuda_build
+    import ctypes
+
+    import torch
+    from ase_tpu_torch.ops import chol, cuda_build
 
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     os.makedirs(cuda_build.BUILD_DIR)
+    report = {}
     for name, (path, text) in cuda_build.build(list(cuda_build.SOURCES), verbose=True).items():
         print(f"built {name}: {os.path.relpath(path, REPO)}")
-        for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line or "smem" in line:
-                print("  " + line.strip())
-    tri = 37 * 38 // 2   # csrc/chol.cu stages the lower triangle of 32 envs per block
-    print(f"  dynamic shared memory per block at n=37: chol_forward {(tri + 37) * 32 * 4} B, "
-          f"back_solve {tri * 32 * 4} B")
+        for kernel, (stack, used) in _ptxas_report(text).items():
+            print(f"  {kernel}: {stack}; {used}")
+            report[kernel] = stack
+    engine = report.get("chol_forward_kernel<37>", "missing")
+    if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in engine:
+        raise Failed(f"chol_forward_kernel<37> must keep y in registers: {engine}")
+    lib = chol._cuda_lib(torch.device("cuda", 0), 37)
+    lib.ase_chol_forward_layout.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.ase_chol_forward_layout.restype = ctypes.c_int
+    for n in (37, 48):
+        threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        chol._raise_on(lib.ase_chol_forward_layout(n, ctypes.byref(threads), ctypes.byref(smem),
+                                                   ctypes.byref(blocks)), "occupancy query")
+        warps = blocks.value * threads.value // 32
+        print(f"  chol_forward at n={n}: {threads.value} threads and {smem.value} B of dynamic "
+              f"shared memory per block, {blocks.value} block(s) = {warps} warps per SM")
+        if n == 37 and warps < 32:
+            raise Failed(f"chol_forward keeps {warps} warps per SM at n=37, want >= 32")
+    print(f"  back_solve: 256 threads and {37 * 38 // 2 * 32 * 4} B of dynamic shared memory "
+          f"per block at n=37")
 
 
 def _spd(torch, n, m, m2, B, gen):
@@ -167,7 +213,7 @@ def kernels_phase():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for (n, m, m2, B) in ((37, 72, 1, 4096), (37, 72, 1, 129), (8, 1, 1, 256)):
+    for (n, m, m2, B) in ((37, 72, 1, 4096), (37, 1, 1, 4096), (37, 72, 1, 129), (8, 1, 1, 256)):
         M, R, R2 = _spd(torch, n, m, m2, B, gen)
         L, Y, Y2 = chol.chol_forward(M, R, R2)
         L1, Y1 = chol.chol_forward(M, R)
@@ -223,7 +269,7 @@ def kernels_phase():
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib[k]}
             print(f"kernel {k} n={n} m={m} m2={m2} B={B}: " + json.dumps(row), flush=True)
-            if (n, B) == (37, 4096):
+            if (n, m, m2, B) == (37, 72, 1, 4096):
                 rows[k] = row
     print("kernels (n=37, m=72, m2=1, B=4096): " + "; ".join(
         f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, "
@@ -307,6 +353,11 @@ def profile_phase(player, card, steps=2):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d}x  "
               f"{e.key[:90]}")
+    chol_us = {k: sum(e.self_device_time_total for e in kernels if k in e.key)
+               for k in ("chol_forward_kernel", "back_solve_kernel")}
+    print("  Cholesky kernels: " + ", ".join(
+        f"{k} {us / 1e3 / steps:.3f} ms/step" for k, us in chol_us.items())
+        + f", {100 * sum(chol_us.values()) / busy_us:.2f}% of device busy time")
 
 
 def check_tick(model, cfg, state, targets):

@@ -190,3 +190,15 @@ def test_player_actions_match_reference(cfgs, jax_net):
         mu, _ = jagent._actor_sigma(ts.params, ts.obs_rms.normalize(jnp.asarray(obs.numpy())), roll)
         close(mu, actions)
     assert float(torch.stack([a for _, _, a in seen]).abs().max()) > 0.1
+
+
+def test_network_refuses_mixed_precision_until_ported(cfgs):
+    """The reference runs bf16 matmuls when ``config.mixed_precision`` is
+    true (``_compute_dtype``); the port runs float32 only, so it refuses
+    the switch instead of ignoring it."""
+    params = copy.deepcopy(cfgs[1]["params"])
+    assert params["config"]["mixed_precision"] is False   # the shipped config
+    assert isinstance(tnets.build_ase_network(params, OBS, ACT, AMP, LAT), tnets.ASENetwork)
+    params["config"]["mixed_precision"] = True
+    with pytest.raises(NotImplementedError, match="mixed_precision"):
+        tnets.build_ase_network(params, OBS, ACT, AMP, LAT)
