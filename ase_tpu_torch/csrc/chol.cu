@@ -44,11 +44,38 @@
 // bandwidth), and phase 2 is a chain of n dependent columns with a barrier
 // each (latency). PERF.md has the measured split between the two.
 //
-// back_solve_kernel: 32 envs x 8 warps per block; the 8 warps stage L's
-// lower triangle in shared memory, then each thread solves one env's column
-// with x in a local array. Not tuned yet.
+// back_solve_kernel (the engine's call is m = 1: one column per env). It
+// moves ~12.7 MB against ~5.6 MFLOP, so it is bound by device memory. A
+// block owns 32 envs and runs 8 warps (at B = 4096 one block per SM on
+// 128 SMs, whose share of L is ~90 KB each):
+//   1. all 256 threads stage L's lower triangle in shared memory (even
+//      elements, then odd ones: back_odd) with no loop over the upper
+//      triangle, every copy in flight at once: each (row, column) segment
+//      of the block's envs is 128 contiguous bytes, copied by 8 threads
+//      with 16-byte cp.async when B % 4 == 0 and L is 16-byte aligned
+//      (chosen at launch), else by 32 threads with 4-byte cp.async;
+//   2. warps 2p and 2p + 1 take columns p, p + 4, ... of y, two lanes
+//      per env (16 envs a warp): lane r keeps x[i] for i % 2 == r, the
+//      lane that owns x[k] scales it and hands it to its partner by one
+//      shuffle, and each lane updates its own half of x[0, k). The odd
+//      elements sit 16 banks from the even ones, so the pair, which reads
+//      neighbouring elements at once, hits different banks. The first
+//      column's loads of y go out before the wait for L; x stays in
+//      registers in the n = 37 instance (a generic instance with x in
+//      local memory serves other n <= 48). Per element the TPU kernel's
+//      updates apply in its order:
+//      x[k] *= rsqrt(L[k,k] L[k,k]), then x[j] -= L[k,j] x[k] for j < k,
+//      k descending.
+// What holds it above the bound: the copies take most of the time, and
+// the solve (37 dependent rows, each with a shuffle) runs after the last
+// byte lands. Overlapping the two (row chunks on mbarriers or named
+// barriers) measured slower: waits inside the unrolled row loop slow the
+// solve, and a thread's cp.async issue stalls until the memory system
+// takes it (PERF.md, section 6).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -60,23 +87,6 @@ constexpr int kEngineN = 37;   // the engine's n (sword-shield humanoid nu)
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
-// Stage the lower triangle of env block b0's (n, n, B) matrices into shared
-// memory. Lanes past B get an identity so no lane divides by zero.
-__device__ __forceinline__ void load_lower(const float* __restrict__ A,
-                                           float* __restrict__ s, int n,
-                                           int B, int b0) {
-  const int lane = threadIdx.x;
-  const int b = b0 + lane;
-  const bool ok = b < B;
-  for (int e = threadIdx.y; e < n * n; e += kWarps) {
-    const int i = e / n;
-    const int j = e - i * n;
-    if (j > i) continue;
-    s[tri(i, j) * kEnvs + lane] =
-        ok ? A[static_cast<size_t>(e) * B + b] : (i == j ? 1.0f : 0.0f);
-  }
-}
-
 // 4-byte asynchronous copy from device to shared memory (cp.async): the
 // copies of one thread all go out at once and land without passing through
 // registers. cp_async_wait_all() waits for this thread's copies.
@@ -87,6 +97,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 16-byte cp.async that skips L1 (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 // Loads right-hand-side column c (of [rhs | rhs2]) of env b into y[0, n).
@@ -196,34 +212,141 @@ chol_forward_kernel(const float* __restrict__ M, const float* __restrict__ R,
   }
 }
 
-__global__ void __launch_bounds__(kEnvs * kWarps)
+// back_solve_kernel's shared layout: L's lower triangle for kEnvs envs,
+// elements of even index first ([e / 2][env]), then, from back_odd(n) on,
+// those of odd index. back_odd is 16 floats past a multiple of 32, so the
+// two lanes of an env, which read neighbouring elements of a row at once,
+// hit different banks; each element's 32 envs stay 128 contiguous bytes.
+__host__ __device__ constexpr int back_odd(int n) {
+  return (n * (n + 1) / 2 + 1) / 2 * kEnvs + kEnvs / 2;
+}
+
+// Row k of the backward substitution on the lane pair of one env: lane r
+// (= lane & 1) keeps x[2u + r] in xl[u]. The lane that owns x[k] scales it
+// by 1 / L[k, k] and hands it to its partner; then each lane applies
+// x[i] -= L[k, i] x[k] to its own i < k. Element t0 + 2u + r of a row
+// starting at element t0 is pa[(t0 / 2 + u) * kEnvs] for even t0 and
+// pb[((t0 - 1) / 2 + u) * kEnvs] for odd t0; the diagonal element e is
+// d0[e / 2 * kEnvs] for even e and d1[e / 2 * kEnvs] for odd e.
+template <int M>
+__device__ __forceinline__ void back_row(int k, float (&xl)[M], const float* pa,
+                                         const float* pb, const float* d0,
+                                         const float* d1, int lane, int r) {
+  const int t0 = tri(k, 0);
+  const int ed = t0 + k;
+  const float lkk = ((ed & 1) ? d1 : d0)[ed / 2 * kEnvs];
+  const float v = xl[k / 2] * rsqrtf(lkk * lkk);       // x[k] / L[k, k] on its owner
+  const float xk = __shfl_sync(0xffffffffu, v, (lane & ~1) | (k & 1));
+  if ((k & 1) == r) xl[k / 2] = xk;
+  const float* p = (t0 & 1) ? pb + (t0 - 1) / 2 * kEnvs : pa + t0 / 2 * kEnvs;
+#pragma unroll
+  for (int u = 0; u < k / 2; ++u) xl[u] = fmaf(-p[u * kEnvs], xk, xl[u]);
+  if ((k & 1) && r == 0) xl[k / 2] = fmaf(-p[k / 2 * kEnvs], xk, xl[k / 2]);
+}
+
+// Rows K, K - 1, ..., 0, each with its row index a constant.
+template <int K, int M>
+__device__ __forceinline__ void back_rows(float (&xl)[M], const float* pa, const float* pb,
+                                          const float* d0, const float* d1, int lane, int r) {
+  if constexpr (K >= 0) {
+    back_row(K, xl, pa, pb, d0, d1, lane, r);
+    back_rows<K - 1>(xl, pa, pb, d0, d1, lane, r);
+  }
+}
+
+// N > 0: an instance for n == N with the solve unrolled and x in registers;
+// N == 0: any n <= kMaxN. vec: L is 16-byte aligned and B % 4 == 0.
+template <int N>
+__global__ void __launch_bounds__(kEnvs * kWarps, 1)
 back_solve_kernel(const float* __restrict__ Lg, const float* __restrict__ Yin,
-                  float* __restrict__ X, int n, int m, int B) {
-  extern __shared__ float smem[];                      // [tri][kEnvs]
+                  float* __restrict__ X, int n_arg, int m, int B, bool vec) {
+  const int n = N > 0 ? N : n_arg;
+  extern __shared__ float4 smem4[];
+  float* s_l = reinterpret_cast<float*>(smem4);        // see back_odd
+  const int odd = back_odd(n);
   const int lane = threadIdx.x;
   const int w = threadIdx.y;
   const int b0 = blockIdx.x * kEnvs;
-  const int b = b0 + lane;
+  const size_t Bs = B;
 
-  load_lower(Lg, smem, n, B, b0);
-  __syncthreads();
-  if (b >= B) return;
-
-  for (int c = w; c < m; c += kWarps) {
-    float x[kMaxN];
-    for (int i = 0; i < n; ++i) {
-      x[i] = Yin[(static_cast<size_t>(i) * m + c) * B + b];
+  // 1. every thread copies `width` floats at q * width of every
+  //    `streams`-th segment of L's lower triangle, from segment t / per
+  //    on (row by row); segments past B are not copied (their lanes store
+  //    nothing)
+  {
+    const int t = w * kEnvs + lane;
+    const int width = vec ? 4 : 1;
+    const int per = kEnvs / width;                     // threads per segment
+    const int streams = kEnvs * kWarps / per;
+    const int q = t % per;
+    const bool live = b0 + q * width < B;
+    int k = 0, j = t / per;
+    while (k < n && j > k) {   // to the segment's row
+      j -= k + 1;
+      ++k;
     }
-    for (int k = n - 1; k >= 0; --k) {
-      const float lkk = smem[tri(k, k) * kEnvs + lane];
-      const float xk = x[k] * rsqrtf(lkk * lkk);       // 1 / L[k, k]
-      x[k] = xk;
-      for (int j = 0; j < k; ++j) {
-        x[j] -= smem[tri(k, j) * kEnvs + lane] * xk;
+    while (k < n) {
+      if (live) {
+        const int e = tri(k, j);
+        float* dst = s_l + (e & 1) * odd + e / 2 * kEnvs + q * width;
+        const float* src = Lg + (k * n + j) * Bs + b0 + q * width;
+        if (vec) {
+          cp_async16(dst, src);
+        } else {
+          cp_async4(dst, src);
+        }
+      }
+      j += streams;
+      while (k < n && j > k) {
+        j -= k + 1;
+        ++k;
       }
     }
-    for (int i = 0; i < n; ++i) {
-      X[(static_cast<size_t>(i) * m + c) * B + b] = x[i];
+  }
+
+  // 2. backward substitution: warps 2p and 2p + 1 take columns p, p + 4,
+  //    ... of y, two lanes per env (16 envs a warp). The first column's
+  //    loads of y go out before the wait for L.
+  constexpr int kHalf = (N > 0 ? N + 1 : kMaxN) / 2;
+  const int env = (w & 1) * (kEnvs / 2) + lane / 2;
+  const int r = lane & 1;
+  const int b = b0 + env;
+  const int bc = min(b, B - 1);                        // past B: load in range, store nothing
+  const size_t ld = m * Bs;
+  const int p0 = w / 2;
+  float xl[kHalf];
+  if (p0 < m) {
+#pragma unroll
+    for (int u = 0; u < kHalf; ++u) {
+      if (2 * u + r < n) xl[u] = Yin[(2 * u + r) * ld + p0 * Bs + bc];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float* pa = s_l + r * odd + env;
+  const float* pb = s_l + (1 - r) * odd + r * kEnvs + env;
+  const float* d0 = s_l + env;
+  const float* d1 = s_l + odd + env;
+  for (int c = p0; c < m; c += kWarps / 2) {
+    // as in chol_forward_kernel: read L again for each column rather than
+    // let the compiler hoist all n(n+1)/2 shared loads out of this loop
+    asm volatile("" ::: "memory");
+    if (c != p0) {
+#pragma unroll
+      for (int u = 0; u < kHalf; ++u) {
+        if (2 * u + r < n) xl[u] = Yin[(2 * u + r) * ld + c * Bs + bc];
+      }
+    }
+    if constexpr (N > 0) {
+      back_rows<N - 1>(xl, pa, pb, d0, d1, lane, r);
+    } else {
+      for (int k = n - 1; k >= 0; --k) back_row(k, xl, pa, pb, d0, d1, lane, r);
+    }
+    if (b < B) {
+#pragma unroll
+      for (int u = 0; u < kHalf; ++u) {
+        if (2 * u + r < n) X[(2 * u + r) * ld + c * Bs + b] = xl[u];
+      }
     }
   }
 }
@@ -239,6 +362,23 @@ decltype(&chol_forward_kernel<0>) forward_kernel(int n) {
   return n == kEngineN ? chol_forward_kernel<kEngineN> : chol_forward_kernel<0>;
 }
 
+// Dynamic shared memory of back_solve_kernel at n: L's lower triangle for
+// kEnvs envs, even elements, then odd ones from back_odd(n).
+size_t back_smem(int n) {
+  return static_cast<size_t>(back_odd(n) + n * (n + 1) / 2 / 2 * kEnvs) * sizeof(float);
+}
+
+// The instance of back_solve_kernel that serves n.
+decltype(&back_solve_kernel<0>) back_kernel(int n) {
+  return n == kEngineN ? back_solve_kernel<kEngineN> : back_solve_kernel<0>;
+}
+
+// back_solve_kernel's 16-byte copies need L 16-byte aligned and every
+// segment of 4 envs whole.
+bool back_vec(const float* L, int B) {
+  return reinterpret_cast<uintptr_t>(L) % 16 == 0 && B % 4 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -249,15 +389,20 @@ int ase_chol_max_n() { return kMaxN; }
 // memory of the largest n (above the 48 KB default). Returns the CUDA error.
 int ase_chol_init() {
   const int fwd = static_cast<int>(forward_smem(kMaxN));
-  cudaError_t e = cudaFuncSetAttribute(
-      chol_forward_kernel<kEngineN>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(chol_forward_kernel<0>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaFuncSetAttribute(
-      back_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxN * (kMaxN + 1) / 2 * kEnvs * sizeof(float))));
+  const int back = static_cast<int>(back_smem(kMaxN));
+  const struct {
+    const void* kernel;
+    int smem;
+  } all[] = {{reinterpret_cast<const void*>(chol_forward_kernel<kEngineN>), fwd},
+             {reinterpret_cast<const void*>(chol_forward_kernel<0>), fwd},
+             {reinterpret_cast<const void*>(back_solve_kernel<kEngineN>), back},
+             {reinterpret_cast<const void*>(back_solve_kernel<0>), back}};
+  for (const auto& k : all) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 // The launch shape of ase_chol_forward at n: threads and dynamic shared
@@ -269,6 +414,17 @@ int ase_chol_forward_layout(int n, int* threads, int* smem_bytes, int* blocks_pe
   *smem_bytes = static_cast<int>(forward_smem(n));
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, forward_kernel(n), *threads, forward_smem(n)));
+}
+
+// The launch shape of ase_back_solve at n: threads and dynamic shared
+// memory per block, and blocks the device keeps resident per SM. Needs
+// ase_chol_init() first. Returns the CUDA error.
+int ase_back_solve_layout(int n, int* threads, int* smem_bytes, int* blocks_per_sm) {
+  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = kEnvs * kWarps;
+  *smem_bytes = static_cast<int>(back_smem(n));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, back_kernel(n), *threads, back_smem(n)));
 }
 
 // L = chol(M), Y = L^-1 rhs, Y2 = L^-1 rhs2 (rhs2/Y2 may be null with m2 = 0).
@@ -288,18 +444,19 @@ int ase_chol_forward(const float* M, const float* rhs, const float* rhs2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x = L^-T y. Needs ase_chol_init() on the device first. Returns
-// cudaGetLastError() after the launch.
+// x = L^-T y. L is staged by 16-byte copies when it is 16-byte aligned and
+// B % 4 == 0, else by 4-byte copies. Needs ase_chol_init() on the device
+// first. Returns cudaGetLastError() after the launch.
 int ase_back_solve(const float* L, const float* y, float* x, int n, int m,
                    int B, void* stream) {
   if (n < 1 || n > kMaxN || m < 1 || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(n * (n + 1) / 2) * kEnvs * sizeof(float);
   const dim3 block(kEnvs, kWarps);
   const dim3 grid((B + kEnvs - 1) / kEnvs);
-  back_solve_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      L, y, x, n, m, B);
+  const auto kernel = back_kernel(n);
+  kernel<<<grid, block, back_smem(n), static_cast<cudaStream_t>(stream)>>>(
+      L, y, x, n, m, B, back_vec(L, B));
   return static_cast<int>(cudaGetLastError());
 }
 

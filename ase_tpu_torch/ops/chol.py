@@ -28,8 +28,15 @@ Bounds at the engine's shapes (n = 37, m = 72, m2 = 1, B = 4096):
 ``chol_forward2`` reads M's lower triangle, rhs and rhs2 and writes L, Y
 and Y2: ~122 MB for ~0.5 GFLOP, so it is memory-bound, a floor of ~37 us at
 the H100 SXM's data-sheet 3.35 TB/s (700 W); ``back_solve`` reads L's lower
-triangle and y and writes x: ~12.7 MB, a floor of ~3.8 us. The design is described in
-``csrc/chol.cu``; measured times are in PERF.md.
+triangle and y and writes x: ~12.7 MB, a floor of ~3.8 us.
+
+Designs (``csrc/chol.cu`` has the details; PERF.md the measured times):
+``chol_forward`` runs 32 envs x 32 warps per block and factors left-looking
+in shared memory. ``back_solve`` runs 32 envs x 8 warps per block: all
+threads stage L's lower triangle by ``cp.async`` with every copy in flight
+at once, then pairs of warps solve columns of y, two lanes per env. The
+copies are 16 bytes when L's ``data_ptr`` is 16-byte aligned and B % 4 ==
+0, else 4 bytes; the launcher chooses, so every contiguous L is taken.
 """
 
 from __future__ import annotations
@@ -78,6 +85,10 @@ def _lib():
         lib.ase_chol_max_n.restype = i
         lib.ase_chol_init.argtypes = []
         lib.ase_chol_init.restype = i
+        pi = ctypes.POINTER(i)
+        for layout in (lib.ase_chol_forward_layout, lib.ase_back_solve_layout):
+            layout.argtypes = [i, pi, pi, pi]
+            layout.restype = i
         lib.max_n = lib.ase_chol_max_n()
         lib._typed = True
     return lib
@@ -136,7 +147,10 @@ def chol_forward(M: torch.Tensor, rhs: torch.Tensor,
 
 
 def back_solve(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Solve L^T x = y (backward substitution). L (n, n, B), y (n, m, B)."""
+    """Solve L^T x = y (backward substitution). L (n, n, B), y (n, m, B),
+    float32, batch-last, contiguous; only L's lower triangle is read. An L
+    that is not 16-byte aligned, or a B that is not a multiple of 4, takes
+    the kernel's 4-byte staging copies instead of its 16-byte ones."""
     _check_square(L)
     n, B = L.shape[0], L.shape[2]
     _check("y", y, n, B, L.device)

@@ -7,21 +7,28 @@ Phases, each printed with its wall time against its budget:
 1. device  -- the card's name and power limit; no card exits non-zero.
 2. build   -- a fresh ase_tpu_torch/_build/, nvcc of every CUDA source with
               -Xptxas -v (registers, stack, spills of every kernel instance
-              printed; the engine's n=37 instance of chol_forward must use
-              no stack), and the forward kernel's launch shape and
-              occupancy (at least 32 warps per SM at n=37).
+              printed; the engine's n=37 instances of chol_forward and
+              back_solve must use no stack), and both kernels' launch
+              shape and occupancy (at n=37 at least 32 warps per SM for
+              chol_forward, 8 for back_solve).
 3. kernels -- every kernel of the player path held against its plain
               PyTorch version on the card at four sizes (the engine's
               n=37, m=72, m2=1, B=4096; the factor-dominated m=1 at
               B=4096; a ragged B=129; n=8), with its
               device time, its bound, the plain version's device time and a
               library yardstick's (CUDA events around a CUDA graph of 20
-              calls, so host work in a wrapper cannot enter a time).
+              calls, so host work in a wrapper cannot enter a time). These
+              calls reuse one input set, which stays in the 50 MB L2 when
+              it is small (``ms``, warm); ``cold_ms`` times the kernels at
+              the engine's shape, and back_solve at every size, on calls
+              that rotate over copies of the inputs holding more than
+              COLD_BYTES, so each call finds L2 cold, as in the engine,
+              where other work runs between the calls.
 4. player  -- ``ase_tpu_torch.run``'s player on HumanoidAMPGetup with the
               shipped ASE LLC at 4096 envs for one chunk of STEPS control
               steps. The kernel launch counters are zeroed just before and
               read just after; obs, actions and rewards must be finite.
-5. profile -- two more control steps under torch.profiler: device-busy
+5. profile -- one more control step under torch.profiler: device-busy
               share, kernel launches per step and the kernels that take the
               most device time (printed; "not measured" if the profiler
               records no device time).
@@ -33,7 +40,9 @@ Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
+import math
 import os
 import shutil
 import signal
@@ -57,6 +66,7 @@ PLAYER_ARGV = [
 ]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # float32 outside the tensor cores
+COLD_BYTES = 100e6               # twice the H100's 50 MB L2
 TOL = 1e-4                       # relative to the largest plain-version magnitude
 TICK_POS_TOL = 5e-5              # one tick, card vs CPU: positions and rotations, absolute
 TICK_VEL_RTOL = 1e-4             # ... velocities, relative to their largest magnitude
@@ -108,6 +118,17 @@ def cuda_ms(torch, fn, reps=20):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def cold_ms(torch, fn, args, work_bytes):
+    """Device time of one call of ``fn(*args)`` as a caller finds it whose
+    other work has evicted the inputs from L2: the captured calls rotate
+    over copies of ``args``, so many that the bytes the calls move
+    (``work_bytes`` each) exceed COLD_BYTES, and every copy is used once
+    per replay before any is used again."""
+    sets = max(2, math.ceil(COLD_BYTES / work_bytes))
+    copies = itertools.cycle([tuple(a.clone() for a in args) for _ in range(sets)])
+    return cuda_ms(torch, lambda: fn(*next(copies)), max(20, sets))
 
 
 def device_phase():
@@ -168,23 +189,22 @@ def build_phase():
         for kernel, (stack, used) in _ptxas_report(text).items():
             print(f"  {kernel}: {stack}; {used}")
             report[kernel] = stack
-    engine = report.get("chol_forward_kernel<37>", "missing")
-    if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in engine:
-        raise Failed(f"chol_forward_kernel<37> must keep y in registers: {engine}")
+    for kernel in ("chol_forward_kernel<37>", "back_solve_kernel<37>"):
+        engine = report.get(kernel, "missing")
+        if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in engine:
+            raise Failed(f"{kernel} must keep its column in registers: {engine}")
     lib = chol._cuda_lib(torch.device("cuda", 0), 37)
-    lib.ase_chol_forward_layout.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.ase_chol_forward_layout.restype = ctypes.c_int
-    for n in (37, 48):
-        threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        chol._raise_on(lib.ase_chol_forward_layout(n, ctypes.byref(threads), ctypes.byref(smem),
-                                                   ctypes.byref(blocks)), "occupancy query")
-        warps = blocks.value * threads.value // 32
-        print(f"  chol_forward at n={n}: {threads.value} threads and {smem.value} B of dynamic "
-              f"shared memory per block, {blocks.value} block(s) = {warps} warps per SM")
-        if n == 37 and warps < 32:
-            raise Failed(f"chol_forward keeps {warps} warps per SM at n=37, want >= 32")
-    print(f"  back_solve: 256 threads and {37 * 38 // 2 * 32 * 4} B of dynamic shared memory "
-          f"per block at n=37")
+    for name, query, want in (("chol_forward", lib.ase_chol_forward_layout, 32),
+                              ("back_solve", lib.ase_back_solve_layout, 8)):
+        for n in (37, 48):
+            threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            chol._raise_on(query(n, ctypes.byref(threads), ctypes.byref(smem),
+                                 ctypes.byref(blocks)), "occupancy query")
+            warps = blocks.value * threads.value // 32
+            print(f"  {name} at n={n}: {threads.value} threads and {smem.value} B of dynamic "
+                  f"shared memory per block, {blocks.value} block(s) = {warps} warps per SM")
+            if n == 37 and warps < want:
+                raise Failed(f"{name} keeps {warps} warps per SM at n=37, want >= {want}")
 
 
 def _spd(torch, n, m, m2, B, gen):
@@ -221,6 +241,14 @@ def kernels_phase():
         torch.cuda.synchronize()
         Lp, Yp, Y2p = chol.chol_forward_plain(M, R, R2)
         xp = chol.back_solve_plain(Lp, Y2p)
+        f = 4.0 * B
+        tri = n * (n + 1) // 2   # the kernels read only the lower triangle of M or L
+        work = {   # (bytes moved, float32 operations)
+            "chol_forward2": (f * (tri + n * n + 2 * n * (m + m2)),
+                              B * (n ** 3 / 3 + n * n * (m + m2))),
+            "chol_forward": (f * (tri + n * n + 2 * n * m), B * (n ** 3 / 3 + n * n * m)),
+            "back_solve": (f * (tri + 2 * n * m2), B * n * n * m2),
+        }
         errs = {
             "chol_forward2": _err([(L, Lp), (Y, Yp), (Y2, Y2p)]),
             "chol_forward": _err([(L1, Lp), (Y1, Yp)]),
@@ -234,6 +262,13 @@ def kernels_phase():
             "back_solve": (cuda_ms(torch, lambda: chol.back_solve(L, Y2)),
                            cuda_ms(torch, lambda: chol.back_solve_plain(L, Y2), 5)),
         }
+        engine = (n, m, m2, B) == (37, 72, 1, 4096)
+        cold = {"back_solve": cold_ms(torch, chol.back_solve, (L, Y2), work["back_solve"][0])}
+        if engine:
+            cold["chol_forward2"] = cold_ms(torch, chol.chol_forward, (M, R, R2),
+                                            work["chol_forward2"][0])
+            cold["chol_forward"] = cold_ms(torch, chol.chol_forward, (M, R),
+                                           work["chol_forward"][0])
         # library yardstick (never called by the port): batch-first
         # torch.linalg.cholesky + solve_triangular on pre-transposed inputs
         Mb = M.permute(2, 0, 1).contiguous()
@@ -253,26 +288,20 @@ def kernels_phase():
             "back_solve": cuda_ms(torch, lambda: torch.linalg.solve_triangular(
                 Lb.mT, yb, upper=True)),
         }
-        f = 4.0 * B
-        tri = n * (n + 1) // 2   # the kernels read only the lower triangle of M or L
-        work = {   # (bytes moved, float32 operations)
-            "chol_forward2": (f * (tri + n * n + 2 * n * (m + m2)),
-                              B * (n ** 3 / 3 + n * n * (m + m2))),
-            "chol_forward": (f * (tri + n * n + 2 * n * m), B * (n ** 3 / 3 + n * n * m)),
-            "back_solve": (f * (tri + 2 * n * m2), B * n * n * m2),
-        }
         for k in errs:
             t_bytes = work[k][0] / HBM_BYTES_PER_S * 1e3
             t_ops = work[k][1] / F32_FLOP_PER_S * 1e3
-            row = {"max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+            row = {"max_abs_err": errs[k], "ms": times[k][0], "cold_ms": cold.get(k),
+                   "plain_ms": times[k][1],
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib[k]}
             print(f"kernel {k} n={n} m={m} m2={m2} B={B}: " + json.dumps(row), flush=True)
-            if (n, m, m2, B) == (37, 72, 1, 4096):
+            if engine:
                 rows[k] = row
     print("kernels (n=37, m=72, m2=1, B=4096): " + "; ".join(
-        f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, "
+        f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+        f"{r['bound_ms'] / r['cold_ms']:.2f} of it cold; plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})" for k, r in rows.items()))
     return rows
 
@@ -325,7 +354,7 @@ def player_phase(card):
     return launches, player
 
 
-def profile_phase(player, card, steps=2):
+def profile_phase(player, card, steps=1):
     """Device-busy share and top kernels over ``steps`` control steps. The
     profiler's own host overhead lengthens the wall time, so the busy share
     is a lower bound."""

@@ -57,6 +57,37 @@ def test_kernels_match_plain_versions_on_the_card(cuda, n, m, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m,B,offset", [
+    (37, 72, 4096, 0),   # many columns: every warp solves
+    (37, 1, 129, 0),     # ragged B: 4-byte copies
+    (37, 1, 36, 0),      # B % 4 == 0 with a partial last block: 16-byte copies
+    (48, 72, 33, 0),     # generic instance at the kernel's n limit, ragged B
+    (48, 1, 4096, 0),    # generic instance, 16-byte copies
+    (37, 1, 4096, 1),    # L and y one float past a 16-byte boundary
+    (37, 72, 129, 3),
+])
+def test_back_solve_matches_plain_version_on_the_card(cuda, n, m, B, offset):
+    """back_solve at the shapes and alignments its launcher tells apart:
+    16-byte staging copies need L 16-byte aligned and B % 4 == 0, anything
+    else takes the 4-byte ones. ``offset`` floats in front of L and y make a
+    contiguous view whose data_ptr is not 16-byte aligned."""
+    M, R, _ = _system(n, m, 1, B, seed=n + m + B)
+    L, _ = chol.chol_forward_plain(torch.as_tensor(M, device=cuda), torch.as_tensor(R, device=cuda))
+    y = torch.as_tensor(R, device=cuda)
+    if offset:
+        L, y = (torch.cat([torch.zeros(offset, device=cuda), t.flatten()])[offset:].view(t.shape)
+                for t in (L, y))
+        assert L.is_contiguous() and L.data_ptr() % 16 != 0 and y.data_ptr() % 16 != 0
+    before = chol.LAUNCHES["back_solve"]
+    x = chol.back_solve(L, y)
+    torch.cuda.synchronize()
+    assert chol.LAUNCHES["back_solve"] == before + 1
+    xp = chol.back_solve_plain(L, y)
+    tol = 1e-4 * max(1.0, float(xp.abs().max()))
+    assert float((x - xp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_n_above_its_shared_memory_limit(cuda):
     M, R, _ = (torch.as_tensor(x, device=cuda) for x in _system(64, 2, 1, 32, seed=4))
     with pytest.raises(ValueError):
