@@ -1,10 +1,12 @@
 """HumanoidAMP: AMP observation history + reference state init (port of
 ``ase_tpu/envs/humanoid_amp.py``).
 
-Keeps the rolling ``numAMPObsSteps`` window of per-step AMP features and
-Reference State Initialization (Default / Start / Random / Hybrid), with
-the reference's default two-query reset: one motion query for the RSI frame,
-one for the (steps - 1) history frames at -dt offsets.
+Keeps the rolling ``numAMPObsSteps`` window of per-step AMP features, the
+discriminator's demo windows from the motion library (``fetch_amp_obs_demo``,
+its draws through ``_draw_demo``), and Reference State Initialization
+(Default / Start / Random / Hybrid), with the reference's default two-query
+reset: one motion query for the RSI frame, one for the (steps - 1) history
+frames at -dt offsets.
 """
 
 from __future__ import annotations
@@ -76,10 +78,36 @@ class HumanoidAMP(Humanoid):
         return state.aux["amp_obs"].reshape(state.aux["amp_obs"].shape[0], -1)
 
     def _history_amp_obs(self, motion_ids, times0, steps: int) -> torch.Tensor:
-        """AMP features at times0 - dt * (1..steps), (n, steps, D)."""
-        n = motion_ids.shape[0]
-        ids = motion_ids[:, None].expand(n, steps).reshape(-1)
+        """The reset history: AMP features at times0 - dt * (1..steps),
+        (n, steps, D)."""
         offs = -self.dt * (torch.arange(steps, device=self.device) + 1)
+        return self._amp_obs_at(motion_ids, times0, offs)
+
+    # -- demo fetch (humanoid_amp.py:105-124) -------------------------------------
+
+    def _draw_demo(self, n: int) -> Dict[str, torch.Tensor]:
+        """Random numbers one demo fetch of ``n`` rows consumes."""
+        return {"motion_ids": ml.sample_motions(self._motion_lib, self.gen, n),
+                "motion_phase": torch.rand(n, generator=self.gen, device=self.device)}
+
+    def fetch_amp_obs_demo(self, n: int) -> torch.Tensor:
+        """(n, amp_obs_size) AMP windows of random clips at random times."""
+        d = self._draw_demo(n)
+        truncate_time = self.dt * (self._num_amp_obs_steps - 1)
+        times0 = ml.sample_time(self._motion_lib, d["motion_phase"], d["motion_ids"],
+                                truncate_time) + truncate_time
+        return self.build_amp_obs_demo(d["motion_ids"], times0).reshape(n, -1)
+
+    def build_amp_obs_demo(self, motion_ids: torch.Tensor, times0: torch.Tensor) -> torch.Tensor:
+        """AMP features at times0 - dt * (0..steps-1), (n, steps, D)."""
+        steps = self._num_amp_obs_steps
+        offs = -self.dt * torch.arange(steps, device=self.device)
+        return self._amp_obs_at(motion_ids, times0, offs)
+
+    def _amp_obs_at(self, motion_ids, times0, offs) -> torch.Tensor:
+        """AMP features of each clip at times0 + offs, (n, len(offs), D)."""
+        n, steps = motion_ids.shape[0], offs.shape[0]
+        ids = motion_ids[:, None].expand(n, steps).reshape(-1)
         times = (times0[:, None] + offs[None, :]).reshape(-1)
         ms = ml.get_motion_state(self._motion_lib, ids, times)
         return obs_kernels.build_amp_observations(

@@ -1,5 +1,6 @@
-"""Carry ASE weights from the reference's path-keyed npz checkpoints into
-the port's modules (the read side of ``ase_tpu/learning/checkpoint.py``).
+"""Carry AMP / ASE weights between the reference's flax layout and the
+port's modules (the read side of ``ase_tpu/learning/checkpoint.py``, and
+its inverse for the parity tests).
 
 A checkpoint key is the JAX tree path of a train-state leaf, e.g.
 ``.params['params']['actor_mlp']['Dense_0']['kernel']``. The loader reads
@@ -7,6 +8,8 @@ the policy parameters (``.params['params'][...]``), the observation
 normalizer (``.obs_rms.*``) and the AMP normalizer
 (``.extra['amp_rms'].*``); nothing is converted on disk. flax ``Dense``
 kernels are (in, out) and become ``nn.Linear`` weights (out, in).
+``export_ase`` writes the same tree back, with ``value_rms`` beside the
+normalizers. Saving and resuming a training run are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ import numpy as np
 import torch
 
 from ase_tpu_torch.learning.running_mean_std import RunningMeanStd
-from ase_tpu_torch.models.networks import ASENetwork
 
 _TOKEN = re.compile(r"\['([^']+)'\]|\.(\w+)")
 
@@ -28,8 +30,9 @@ def _parse_key(key: str):
 
 
 def read_npz_tree(path: str) -> dict:
-    """The ``params``, ``obs_rms`` and ``amp_rms`` subtrees of a checkpoint,
-    as nested dicts of numpy arrays (only those keys are read)."""
+    """The ``params``, ``obs_rms``, ``value_rms`` and ``amp_rms`` subtrees of
+    a checkpoint, as nested dicts of numpy arrays (only those keys are
+    read)."""
     tree: dict = {}
     with np.load(path) as data:
         for key in data.files:
@@ -38,7 +41,7 @@ def read_npz_tree(path: str) -> dict:
                 parts = ("params",) + parts[2:]
             elif parts[:2] == ("extra", "amp_rms"):
                 parts = ("amp_rms",) + parts[2:]
-            elif parts[0] != "obs_rms":
+            elif parts[0] not in ("obs_rms", "value_rms"):
                 continue
             node = tree
             for p in parts[:-1]:
@@ -47,39 +50,70 @@ def read_npz_tree(path: str) -> dict:
     return tree
 
 
-def _linear(layer: torch.nn.Linear, p: Mapping) -> None:
-    layer.weight.copy_(torch.as_tensor(np.asarray(p["kernel"]).T))
-    layer.bias.copy_(torch.as_tensor(np.asarray(p["bias"])))
+_RMS_FIELDS = ("mean", "var", "count")
 
 
-def _mlp(mlp, p: Mapping, n: int) -> None:
-    for i in range(n):
-        _linear(mlp.layers[i], p[f"Dense_{i}"])
+def _linears(net):
+    """(flax path, nn.Linear) of every dense layer of an AMP or ASE network."""
+    out = []
+    for name in ("actor_mlp", "critic_mlp", "disc_mlp"):
+        out += [((name, f"Dense_{i}"), layer) for i, layer in enumerate(getattr(net, name).layers)]
+    if hasattr(net, "style_net"):
+        style = net.style_net.mlp.layers
+        out += [(("style_net", f"Dense_{i}"), layer) for i, layer in enumerate(style)]
+        out.append((("style_net", f"Dense_{len(style)}"), net.style_net.out))
+    for name in ("mu", "value", "disc_logits", "enc_head"):
+        if hasattr(net, name):
+            out.append(((name,), getattr(net, name)))
+    return out
 
 
-def _rms(rms: RunningMeanStd, p: Mapping) -> None:
-    rms.mean.copy_(torch.as_tensor(np.asarray(p["mean"])))
-    rms.var.copy_(torch.as_tensor(np.asarray(p["var"])))
-    rms.count.copy_(torch.as_tensor(np.asarray(p["count"])))
+def _get(tree: Mapping, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tensor(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=like.dtype).to(like.device)
 
 
 @torch.no_grad()
-def load_ase(tree: Mapping, net: ASENetwork, obs_rms: RunningMeanStd = None,
-             amp_rms: RunningMeanStd = None) -> None:
-    """Copy a reference ASE tree -- ``{"params": flax params, "obs_rms":
-    {...}, "amp_rms": {...}}``, numpy leaves, as ``read_npz_tree`` returns or
-    as a JAX params tree turned into numpy -- into the port's modules."""
+def load_ase(tree: Mapping, net, obs_rms: RunningMeanStd = None,
+             amp_rms: RunningMeanStd = None, value_rms: RunningMeanStd = None) -> None:
+    """Copy a reference AMP or ASE tree -- ``{"params": flax params,
+    "obs_rms": {...}, "amp_rms": {...}, "value_rms": {...}}``, numpy
+    leaves, as ``read_npz_tree`` returns or as a JAX params tree turned into
+    numpy -- into the port's modules. A normalizer is read when it is
+    passed."""
     p = tree["params"]
-    for name in ("actor_mlp", "critic_mlp", "disc_mlp"):
-        mod = getattr(net, name)
-        _mlp(mod, p[name], len(mod.layers))
-    n_style = len(net.style_net.mlp.layers)
-    _mlp(net.style_net.mlp, p["style_net"], n_style)
-    _linear(net.style_net.out, p["style_net"][f"Dense_{n_style}"])
-    for name in ("mu", "value", "disc_logits", "enc_head"):
-        _linear(getattr(net, name), p[name])
-    net.sigma.copy_(torch.as_tensor(np.asarray(p["sigma"])))
-    if obs_rms is not None:
-        _rms(obs_rms, tree["obs_rms"])
-    if amp_rms is not None:
-        _rms(amp_rms, tree["amp_rms"])
+    for path, layer in _linears(net):
+        d = _get(p, path)
+        layer.weight.copy_(_tensor(np.asarray(d["kernel"]).T, layer.weight))
+        layer.bias.copy_(_tensor(d["bias"], layer.bias))
+    net.sigma.copy_(_tensor(p["sigma"], net.sigma))
+    for key, rms in (("obs_rms", obs_rms), ("amp_rms", amp_rms), ("value_rms", value_rms)):
+        if rms is not None:
+            for f in _RMS_FIELDS:
+                getattr(rms, f).copy_(_tensor(tree[key][f], getattr(rms, f)))
+
+
+def export_ase(net, obs_rms: RunningMeanStd = None, amp_rms: RunningMeanStd = None,
+               value_rms: RunningMeanStd = None) -> dict:
+    """The inverse of ``load_ase``: the port's modules as a tree of numpy
+    arrays in the reference's flax layout."""
+    def arr(t):
+        return t.detach().cpu().numpy().copy()
+
+    params: dict = {"sigma": arr(net.sigma)}
+    for path, layer in _linears(net):
+        node = params
+        for k in path:
+            node = node.setdefault(k, {})
+        node["kernel"] = arr(layer.weight).T.copy()
+        node["bias"] = arr(layer.bias)
+    tree = {"params": params}
+    for key, rms in (("obs_rms", obs_rms), ("amp_rms", amp_rms), ("value_rms", value_rms)):
+        if rms is not None:
+            tree[key] = {f: arr(getattr(rms, f)) for f in _RMS_FIELDS}
+    return tree

@@ -1,11 +1,27 @@
-"""Inference side of the PPO agent (port of the player-facing hooks of
-``ase_tpu/learning/common_agent.py``): observation normalization, the
-per-step hook and one env transition. The PPO update, rollout storage and
-GAE come with the training slice."""
+"""The PPO core (port of ``ase_tpu/learning/common_agent.py``).
+
+One training epoch is a ``horizon_length``-step rollout of every env (with
+the env's partial resets), GAE over the recorded batch with stored
+next-values, masked advantage normalization, and ``mini_epochs`` passes of
+minibatch PPO updates, in the reference's order of operations. The losses
+are the reference's: clipped surrogate, value MSE times ``critic_coef``,
+soft bound loss (soft bound 1.0) times ``bounds_loss_coef``; actor, bound
+and entropy terms are means masked by the ε-greedy ``rand_action_mask``.
+
+The rollout runs eagerly on the env's device under ``torch.no_grad()``
+(not ``inference_mode``: its tensors feed the update's backward). The
+train state lives on the agent: network, Adam state, normalizers, game
+meters, epoch and frame counters. Every random number the epoch consumes
+comes through one ``_draw_*`` method per consumer, so a test can hand the
+port the reference's numbers. Saving and resuming are not ported yet:
+``train`` writes no checkpoint.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+import time
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -16,15 +32,54 @@ class CommonAgent:
     def __init__(self, env, cfg_train: Dict[str, Any]):
         self.env = env
         self.cfg_train = cfg_train
-        self.config = cfg_train["params"]["config"]
+        config = self.config = cfg_train["params"]["config"]
         self.device = env.device
         self.num_actors = env.num_envs
-        self.normalize_input = bool(self.config.get("normalize_input", True))
+        self.horizon_length = int(config["horizon_length"])
+        self.minibatch_size = int(config["minibatch_size"])
+        self.mini_epochs = int(config["mini_epochs"])
+        self.gamma = float(config["gamma"])
+        self.tau = float(config["tau"])
+        self.e_clip = float(config["e_clip"])
+        self.critic_coef = float(config["critic_coef"])
+        self.bounds_loss_coef = float(config.get("bounds_loss_coef", 0.0))
+        self.entropy_coef = float(config.get("entropy_coef", 0.0))
+        self.grad_norm = float(config.get("grad_norm", 1.0))
+        self.truncate_grads = bool(config.get("truncate_grads", False))
+        self.normalize_input = bool(config.get("normalize_input", True))
+        self.normalize_value = bool(config.get("normalize_value", True))
+        self.normalize_advantage = bool(config.get("normalize_advantage", True))
+        self.learning_rate = float(config["learning_rate"])
+        self.lr_schedule = str(config.get("lr_schedule", "constant"))
+        self.kl_threshold = float(config.get("kl_threshold", 0.008))
+        self.max_epochs = int(config.get("max_epochs", 10000))
+        self.games_to_track = int(config.get("games_to_track", 100))
+
+        self.batch_size = self.horizon_length * self.num_actors
+        self.num_minibatches = self.batch_size // self.minibatch_size
+
         self.obs_dim = env.get_obs_size()
         self.action_dim = env.get_action_size()
         self.obs_rms = RunningMeanStd((self.obs_dim,)).to(self.device)
+        self.value_rms = RunningMeanStd((1,)).to(self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(cfg_train["params"].get("seed", 0)) + 1)
+        self.network = self._build_network().to(self.device)
+        self.optimizer = None
+        self.epoch = 0
+        self.frame = 0
+
+    # -- overridables -----------------------------------------------------------
+
+    def _build_network(self) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def _actor_sigma(self, obs_n, roll):
+        """(mu, log_sigma) for the normalized obs batch."""
+        raise NotImplementedError
+
+    def _critic(self, obs_n, roll):
+        raise NotImplementedError
 
     def _init_rollout_carry(self) -> Dict[str, torch.Tensor]:
         return {}
@@ -37,3 +92,362 @@ class CommonAgent:
         """One env transition; returns (env_state, rewards)."""
         env_state = self.env.step(env_state, actions)
         return env_state, env_state.rew
+
+    def _record_step(self, env_state, roll, rec):
+        """Extend the per-step record (AMP obs, latents, ...)."""
+        return rec
+
+    def _rand_action_mask(self, u_mask):
+        return torch.ones(self.num_actors, device=self.device)
+
+    def _post_rollout(self, roll) -> None:
+        """Persist rollout-carry state across epochs (ASE latents)."""
+
+    def _process_rewards(self, batch):
+        return batch
+
+    def _prepare_extra_dataset(self, batch, dataset):
+        return dataset
+
+    def _minibatch_rows(self) -> Dict[str, int]:
+        """Fields gathered with only the first N permuted indices."""
+        return {}
+
+    def _extra_loss(self, loss, mb, info):
+        return loss, info
+
+    def _post_update(self, dataset) -> None:
+        """Hook after the minibatch loop (the AMP replay store)."""
+
+    # -- random draws (one method per consumer) ---------------------------------
+
+    def _draw_actions(self, n: int) -> Dict[str, torch.Tensor]:
+        """Action noise (n, actions) and the ε-greedy uniform (n,)."""
+        return {"noise": torch.randn(n, self.action_dim, generator=self.gen, device=self.device),
+                "u_mask": torch.rand(n, generator=self.gen, device=self.device)}
+
+    def _draw_minibatch_perm(self) -> torch.Tensor:
+        """One permutation of the batch per mini-epoch."""
+        return torch.randperm(self.batch_size, generator=self.gen, device=self.device)
+
+    # -- train state --------------------------------------------------------------
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        return torch.optim.Adam(self.network.parameters(), lr=self.learning_rate, eps=1e-8)
+
+    def init_train_state(self) -> None:
+        """Optimizer, game meters and the rollout carry (subclasses add the
+        AMP buffers and latents)."""
+        if self.batch_size % self.minibatch_size != 0:
+            raise ValueError(f"batch {self.batch_size} % minibatch {self.minibatch_size} != 0")
+        self.optimizer = self._make_optimizer()
+        B, K, dev = self.num_actors, self.games_to_track, self.device
+        self.meters = {
+            "cur_rewards": torch.zeros(B, device=dev),
+            "cur_lengths": torch.zeros(B, device=dev),
+            "game_rewards_buf": torch.zeros(K, device=dev),
+            "game_lengths_buf": torch.zeros(K, device=dev),
+            "game_success_buf": torch.zeros(K, device=dev),
+            "game_head": torch.zeros((), dtype=torch.long, device=dev),
+            "game_total": torch.zeros((), device=dev),
+        }
+        self.roll_state = self._init_rollout_carry()
+
+    def setup_training(self):
+        """Train state, then the env's initial state (the reference's order)."""
+        self.init_train_state()
+        return self.env.initial_state()
+
+    # -- policy math ----------------------------------------------------------------
+
+    def _denorm_value(self, v):
+        return self.value_rms.denormalize(v) if self.normalize_value else v
+
+    @staticmethod
+    def _neglogp(actions, mu, log_sigma):
+        sigma = torch.exp(log_sigma)
+        return (0.5 * torch.sum(torch.square((actions - mu) / sigma), dim=-1)
+                + 0.5 * math.log(2.0 * math.pi) * actions.shape[-1]
+                + torch.sum(log_sigma, dim=-1))
+
+    @staticmethod
+    def _entropy(log_sigma):
+        return torch.sum(log_sigma + 0.5 * math.log(2.0 * math.pi * math.e), dim=-1)
+
+    @staticmethod
+    def _policy_kl(mu, log_sigma, old_mu, old_log_sigma):
+        """Analytic diagonal-gaussian KL (rl_games torch_ext.policy_kl)."""
+        s, so = torch.exp(log_sigma), torch.exp(old_log_sigma)
+        kl = (old_log_sigma - log_sigma
+              + (torch.square(so) + torch.square(mu - old_mu)) / (2.0 * torch.square(s)) - 0.5)
+        return torch.mean(torch.sum(kl, dim=-1))
+
+    def _update_game_meters(self, rewards, dones, successes=None) -> None:
+        """Windowed episode meters over the last ``games_to_track`` finished
+        games; with more than K finishes in one step only the last K land."""
+        m, K = self.meters, self.games_to_track
+        cur_r = m["cur_rewards"] + rewards
+        cur_l = m["cur_lengths"] + 1.0
+        fin_rank = torch.cumsum(dones, 0).long() - 1
+        n_fin = dones.sum()
+        keep = fin_rank >= n_fin.long() - K
+        pos = torch.where((dones > 0) & keep, (m["game_head"] + fin_rank) % K,
+                          torch.full_like(fin_rank, K))
+
+        def drop_scatter(buf, vals):
+            out = torch.cat([buf, buf.new_zeros(1)])
+            out[pos] = vals
+            return out[:K]
+
+        m["game_rewards_buf"] = drop_scatter(m["game_rewards_buf"], cur_r)
+        m["game_lengths_buf"] = drop_scatter(m["game_lengths_buf"], cur_l)
+        if successes is not None:
+            m["game_success_buf"] = drop_scatter(m["game_success_buf"], successes)
+        m["game_head"] = (m["game_head"] + n_fin.long()) % K
+        m["game_total"] = m["game_total"] + n_fin
+        m["cur_rewards"] = cur_r * (1.0 - dones)
+        m["cur_lengths"] = cur_l * (1.0 - dones)
+
+    # -- rollout ----------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _rollout(self, env_state):
+        T, B = self.horizon_length, self.num_actors
+        roll = dict(self.roll_state)
+        batch: Dict[str, torch.Tensor] = {}
+        for t in range(T):
+            env_state = self.env.reset_done(env_state)
+            env_state, roll = self._pre_rollout_step(env_state, roll)
+            obs = env_state.obs
+            obs_n = self.obs_rms.normalize(obs) if self.normalize_input else obs
+            d = self._draw_actions(B)
+            mu, log_sigma = self._actor_sigma(obs_n, roll)
+            value = self._denorm_value(self._critic(obs_n, roll))
+            sampled = mu + torch.exp(log_sigma) * d["noise"]
+            rand_mask = self._rand_action_mask(d["u_mask"])
+            actions = torch.where(rand_mask[:, None] > 0, sampled, mu)
+            neglogp = self._neglogp(actions, mu, log_sigma)
+
+            env_state, rewards = self._env_step(env_state, actions)
+            dones = env_state.reset_buf.to(torch.float32)
+            terminated = env_state.terminate_buf.to(torch.float32)
+            self._update_game_meters(rewards, dones, env_state.aux.get("successes"))
+
+            next_obs_n = (self.obs_rms.normalize(env_state.obs) if self.normalize_input
+                          else env_state.obs)
+            next_value = self._denorm_value(self._critic(next_obs_n, roll))
+            next_value = next_value * (1.0 - terminated[:, None])
+            rec = {"obs": obs, "actions": actions, "mu": mu, "sigma": log_sigma,
+                   "neglogp": neglogp, "values": value, "rewards": rewards[:, None],
+                   "dones": dones, "next_values": next_value, "rand_action_mask": rand_mask}
+            rec = self._record_step(env_state, roll, rec)
+            for k, v in rec.items():
+                if k not in batch:
+                    batch[k] = v.new_empty((T,) + tuple(v.shape))
+                batch[k][t] = v
+        return env_state, roll, batch
+
+    def _discount_values(self, dones, values, rewards, next_values):
+        """GAE over T, newest step first."""
+        advs = torch.empty_like(values)
+        lastgaelam = torch.zeros_like(values[0])
+        for t in reversed(range(values.shape[0])):
+            not_done = (1.0 - dones[t])[:, None]
+            delta = rewards[t] + self.gamma * next_values[t] - values[t]
+            lastgaelam = delta + self.gamma * self.tau * not_done * lastgaelam
+            advs[t] = lastgaelam
+        return advs
+
+    @staticmethod
+    def _normalize_adv(advantages, mask):
+        """Masked advantage normalization (torch_ext.normalization_with_masks)."""
+        msum = torch.clamp(mask.sum(), min=1.0)
+        mean = torch.sum(advantages * mask) / msum
+        var = torch.sum(mask * torch.square(advantages - mean)) / msum
+        return (advantages - mean) / (torch.sqrt(var) + 1e-8)
+
+    def _prepare_dataset(self, batch):
+        T, B = self.horizon_length, self.num_actors
+
+        def flat(x):
+            return x.reshape((T * B,) + tuple(x.shape[2:]))
+
+        values, returns = flat(batch["values"]), flat(batch["returns"])
+        advantages = torch.sum(returns - values, dim=1)
+        rmask = flat(batch["rand_action_mask"])
+        if self.normalize_advantage:
+            advantages = self._normalize_adv(advantages, rmask)
+        if self.normalize_value:
+            self.value_rms.update(values).update(returns)
+            values = self.value_rms.normalize(values, clip=math.inf)
+            returns = self.value_rms.normalize(returns, clip=math.inf)
+        # obs stay raw: each minibatch updates obs_rms and normalizes with it
+        dataset = {"obs_n": flat(batch["obs"]), "actions": flat(batch["actions"]),
+                   "neglogp": flat(batch["neglogp"]), "values": values, "returns": returns,
+                   "advantages": advantages, "mu": flat(batch["mu"]),
+                   "sigma": flat(batch["sigma"]), "rand_action_mask": rmask}
+        return self._prepare_extra_dataset(batch, dataset)
+
+    @torch.no_grad()
+    def _rollout_phase(self, env_state):
+        env_state, roll, batch = self._rollout(env_state)
+        self._post_rollout(roll)
+        batch = self._process_rewards(batch)
+        batch["returns"] = self._discount_values(
+            batch["dones"], batch["values"], batch["rewards"], batch["next_values"]) + batch["values"]
+        dataset = self._prepare_dataset(batch)
+        metrics = {"reward_mean": batch["rewards"].mean()}
+        for k in ("disc_rewards", "enc_rewards"):
+            if k in batch:
+                metrics[k[:-1] + "_mean"] = batch[k].mean()
+        self.epoch += 1
+        self.frame += self.batch_size
+        return env_state, dataset, metrics
+
+    # -- losses ---------------------------------------------------------------------
+
+    def _actor_loss(self, old_neglogp, neglogp, advantage):
+        ratio = torch.exp(old_neglogp - neglogp)
+        surr1 = advantage * ratio
+        surr2 = advantage * torch.clamp(ratio, 1.0 - self.e_clip, 1.0 + self.e_clip)
+        a_loss = torch.maximum(-surr1, -surr2)
+        clipped = (torch.abs(ratio - 1.0) > self.e_clip).to(torch.float32)
+        return a_loss, clipped
+
+    def _bound_loss(self, mu):
+        if self.bounds_loss_coef == 0:
+            return torch.zeros(mu.shape[:-1], device=mu.device)
+        hi = torch.square(torch.clamp(mu - 1.0, min=0.0))
+        lo = torch.square(torch.clamp(mu + 1.0, max=0.0))
+        return torch.sum(hi + lo, dim=-1)
+
+    def _loss(self, mb):
+        """Minibatch loss and its info; subclasses extend via _extra_loss."""
+        obs_n = mb["obs_n"]
+        mu, log_sigma = self._actor_sigma(obs_n, mb)
+        values = self._critic(obs_n, mb)
+        neglogp = self._neglogp(mb["actions"], mu, log_sigma)
+        a_loss, a_clipped = self._actor_loss(mb["neglogp"], neglogp, mb["advantages"])
+        c_loss = torch.square(mb["returns"] - values)
+        b_loss = self._bound_loss(mu)
+        entropy = self._entropy(log_sigma)
+
+        rmask = mb["rand_action_mask"]
+        rsum = torch.clamp(rmask.sum(), min=1.0)
+        a_loss_m = torch.sum(rmask * a_loss) / rsum
+        b_loss_m = torch.sum(rmask * b_loss) / rsum
+        ent_m = torch.sum(rmask * entropy) / rsum
+        c_loss_m = torch.mean(c_loss)
+        loss = (a_loss_m + self.critic_coef * c_loss_m - self.entropy_coef * ent_m
+                + self.bounds_loss_coef * b_loss_m)
+        info = {"a_loss": a_loss_m, "c_loss": c_loss_m, "b_loss": b_loss_m, "entropy": ent_m,
+                "clip_frac": torch.sum(rmask * a_clipped) / rsum, "mu": mu, "sigma": log_sigma}
+        return self._extra_loss(loss, mb, info)
+
+    # -- update -----------------------------------------------------------------------
+
+    def _preproc_minibatch(self, mb):
+        """Per-minibatch normalizer updates (rl_games train-mode forwards)."""
+        if self.normalize_input:
+            mb = dict(mb)
+            mb["obs_n"] = self.obs_rms.update(mb["obs_n"]).normalize(mb["obs_n"])
+        return mb
+
+    def _gather_minibatch(self, dataset, idx):
+        rows = self._minibatch_rows()
+        return {k: (v[idx] if k not in rows else v[idx[:rows[k]]]) for k, v in dataset.items()}
+
+    def _adapt_lr(self, kl: float) -> None:
+        """KL-threshold LR adaptation (rl_games AdaptiveScheduler: /1.5 when
+        KL > 2·threshold, ×1.5 when KL < threshold/2, within [1e-6, 1e-2])."""
+        for g in self.optimizer.param_groups:
+            lr = g["lr"]
+            if kl > 2.0 * self.kl_threshold:
+                lr = max(lr / 1.5, 1e-6)
+            if kl < 0.5 * self.kl_threshold:
+                lr = min(lr * 1.5, 1e-2)
+            g["lr"] = lr
+
+    def _update_minibatch(self, mb) -> Dict[str, torch.Tensor]:
+        """One minibatch: normalizer updates, loss, backward, Adam step.
+        Returns the scalar infos, the policy KL and the loss (on device)."""
+        mb = self._preproc_minibatch(mb)
+        loss, info = self._loss(mb)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.truncate_grads:
+            torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_norm)
+        self.optimizer.step()
+        with torch.no_grad():
+            kl = self._policy_kl(info["mu"], info["sigma"], mb["mu"], mb["sigma"])
+        if self.lr_schedule == "adaptive":
+            self._adapt_lr(float(kl))
+        metrics = {k: v.detach() for k, v in info.items() if v.dim() == 0}
+        metrics["kl"] = kl
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    def _update_phase(self, dataset) -> Dict[str, torch.Tensor]:
+        infos = []
+        for _ in range(self.mini_epochs):
+            perm = self._draw_minibatch_perm()
+            for i in range(self.num_minibatches):
+                idx = perm[i * self.minibatch_size:(i + 1) * self.minibatch_size]
+                infos.append(self._update_minibatch(self._gather_minibatch(dataset, idx)))
+        with torch.no_grad():
+            self._post_update(dataset)
+            metrics = {k: torch.stack([m[k] for m in infos]).mean() for k in infos[0]}
+            m = self.meters
+            n_games = torch.clamp(m["game_total"], 1.0, float(self.games_to_track))
+            metrics["game_reward_mean"] = m["game_rewards_buf"].sum() / n_games
+            metrics["game_length_mean"] = m["game_lengths_buf"].sum() / n_games
+            metrics["games_played"] = m["game_total"]
+            metrics["consecutive_successes_mean"] = m["game_success_buf"].sum() / n_games
+        return metrics
+
+    # -- epochs ---------------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train_epoch(self, env_state):
+        """One epoch: rollout, then update. Returns the env state and a
+        record of the epoch -- its metrics as floats, wall time with the
+        rollout/update split (each phase ends in a device sync) and
+        env-steps/s."""
+        t0 = time.time()
+        env_state, dataset, rmetrics = self._rollout_phase(env_state)
+        self._sync()
+        t1 = time.time()
+        metrics = self._update_phase(dataset)
+        metrics.update(rmetrics)
+        names = sorted(metrics)
+        values = torch.stack([metrics[k].to(torch.float32) for k in names]).cpu().tolist()
+        t2 = time.time()
+        return env_state, {"epoch": self.epoch - 1, "wall_s": t2 - t0, "rollout_s": t1 - t0,
+                           "update_s": t2 - t1, "env_steps_per_s": self.batch_size / (t2 - t0),
+                           "metrics": dict(zip(names, values))}
+
+    def train(self, max_epochs: Optional[int] = None, env_state=None,
+              on_epoch: Optional[Callable[[dict], None]] = None):
+        """Train ``max_epochs`` epochs (the config's ``max_epochs`` by
+        default), printing an ``epoch N fps:...`` line per epoch and calling
+        ``on_epoch(record)`` after each. Sets up the train and env states
+        unless ``env_state`` is given. Writes no checkpoint. Returns the env
+        state and the last record."""
+        max_epochs = max_epochs or self.max_epochs
+        print(f"training {type(self).__name__} for {max_epochs} epochs on {self.device}: "
+              f"{self.num_actors} envs x {self.horizon_length} steps; no checkpoint is "
+              f"written (saving is not ported yet)", flush=True)
+        if env_state is None:
+            env_state = self.setup_training()
+        start, record = time.time(), None
+        while self.epoch < max_epochs:
+            env_state, record = self.train_epoch(env_state)
+            msg = " ".join(f"{k}:{v:.4f}" for k, v in record["metrics"].items())
+            print(f"epoch {record['epoch']} fps:{record['env_steps_per_s']:.0f} {msg}", flush=True)
+            if on_epoch is not None:
+                on_epoch(record)
+        print(f"training done in {time.time() - start:.1f}s", flush=True)
+        return env_state, record

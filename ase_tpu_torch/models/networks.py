@@ -1,29 +1,49 @@
 """Policy / value / discriminator / encoder networks as ``nn.Module``s
-(port of the ``MLP``, ``StyleNet`` and ``ASENetwork`` of
+(port of the ``MLP``, ``AMPNetwork``, ``StyleNet`` and ``ASENetwork`` of
 ``ase_tpu/models/networks.py``).
 
-Layer widths, activations and heads are the reference's: the actor is a
-style net (latent -> 512 -> 256 -> tanh style vector) concatenated with the
-observation into the main MLP; the critic sees obs + latent; the encoder
-shares the discriminator trunk and L2-normalizes its head. Weights come
-from ``learning.checkpoint.load_ase`` (or torch's default init).
+Layer widths, activations, heads and initialisation are the reference's:
+every ``Linear`` weight U(+-1/sqrt(fan_in)) (torch's default weight init)
+with a zero bias, except the ±1-uniform discriminator logit layer and
+style output, the ±0.1-uniform encoder head, and a constant log-sigma
+``sigma_init.val`` (a trainable parameter, as optax trains every leaf).
+AMP: separate actor/critic MLPs on the observation plus the discriminator.
+ASE: the actor is a style net (latent -> 512 -> 256 -> tanh style vector)
+concatenated with the observation into the main MLP; the critic sees
+obs + latent; the encoder shares the discriminator trunk and L2-normalizes
+its head. Trained weights come from ``learning.checkpoint.load_ase``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
 
 
+def _init_linear(layer: nn.Linear, gen: torch.Generator, scale: float = None) -> nn.Linear:
+    """Weight U(+-scale), scale 1/sqrt(fan_in) by default; zero bias."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(layer.in_features)
+    with torch.no_grad():
+        layer.weight.uniform_(-scale, scale, generator=gen)
+        layer.bias.zero_()
+    return layer
+
+
+def _linear(a: int, b: int, gen: torch.Generator, scale: float = None) -> nn.Linear:
+    return _init_linear(nn.Linear(a, b), gen, scale)
+
+
 class MLP(nn.Module):
     """Dense + relu stack; parameters named Dense_0..Dense_{n-1} as in flax."""
 
-    def __init__(self, in_dim: int, units: Sequence[int]):
+    def __init__(self, in_dim: int, units: Sequence[int], gen: torch.Generator):
         super().__init__()
         dims = [in_dim, *units]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(_linear(a, b, gen) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
         for layer in self.layers:
@@ -31,13 +51,40 @@ class MLP(nn.Module):
         return x
 
 
+class AMPNetwork(nn.Module):
+    """Actor + critic + discriminator."""
+
+    def __init__(self, obs_dim: int, amp_obs_dim: int, actions_num: int,
+                 units: Sequence[int], disc_units: Sequence[int],
+                 sigma_init_val: float = -2.9, gen: torch.Generator = None):
+        super().__init__()
+        self.actor_mlp = MLP(obs_dim, units, gen)
+        self.critic_mlp = MLP(obs_dim, units, gen)
+        self.mu = _linear(units[-1], actions_num, gen)
+        self.value = _linear(units[-1], 1, gen)
+        self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
+        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen)
+        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0)
+
+    def eval_actor(self, obs) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu = self.mu(self.actor_mlp(obs))
+        return mu, self.sigma.expand(mu.shape)
+
+    def eval_critic(self, obs) -> torch.Tensor:
+        return self.value(self.critic_mlp(obs))
+
+    def eval_disc(self, amp_obs) -> torch.Tensor:
+        return self.disc_logits(self.disc_mlp(amp_obs))
+
+
 class StyleNet(nn.Module):
     """Latent -> tanh style vector."""
 
-    def __init__(self, latent_dim: int, style_units: Sequence[int], style_dim: int):
+    def __init__(self, latent_dim: int, style_units: Sequence[int], style_dim: int,
+                 gen: torch.Generator):
         super().__init__()
-        self.mlp = MLP(latent_dim, style_units)
-        self.out = nn.Linear(style_units[-1], style_dim)
+        self.mlp = MLP(latent_dim, style_units, gen)
+        self.out = _linear(style_units[-1], style_dim, gen, scale=1.0)
 
     def forward(self, z):
         return torch.tanh(self.out(self.mlp(z)))
@@ -48,17 +95,18 @@ class ASENetwork(nn.Module):
 
     def __init__(self, obs_dim: int, amp_obs_dim: int, actions_num: int, latent_dim: int,
                  units: Sequence[int], disc_units: Sequence[int],
-                 style_units: Sequence[int] = (512, 256), sigma_init_val: float = -2.9):
+                 style_units: Sequence[int] = (512, 256), sigma_init_val: float = -2.9,
+                 gen: torch.Generator = None):
         super().__init__()
-        self.style_net = StyleNet(latent_dim, style_units, latent_dim)
-        self.actor_mlp = MLP(obs_dim + latent_dim, units)
-        self.critic_mlp = MLP(obs_dim + latent_dim, units)
-        self.mu = nn.Linear(units[-1], actions_num)
-        self.value = nn.Linear(units[-1], 1)
+        self.style_net = StyleNet(latent_dim, style_units, latent_dim, gen)
+        self.actor_mlp = MLP(obs_dim + latent_dim, units, gen)
+        self.critic_mlp = MLP(obs_dim + latent_dim, units, gen)
+        self.mu = _linear(units[-1], actions_num, gen)
+        self.value = _linear(units[-1], 1, gen)
         self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
-        self.disc_mlp = MLP(amp_obs_dim, disc_units)
-        self.disc_logits = nn.Linear(disc_units[-1], 1)
-        self.enc_head = nn.Linear(disc_units[-1], latent_dim)
+        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen)
+        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0)
+        self.enc_head = _linear(disc_units[-1], latent_dim, gen, scale=0.1)
 
     def eval_actor(self, obs, ase_latents) -> Tuple[torch.Tensor, torch.Tensor]:
         h = torch.cat([obs, self.style_net(ase_latents)], dim=-1)
@@ -76,20 +124,38 @@ class ASENetwork(nn.Module):
         return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-8)
 
 
-def build_ase_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int,
-                      latent_dim: int) -> ASENetwork:
-    """ASENetwork from a cfg_train ``params`` block."""
+def _checked(params):
+    """The network block and the widths both builders take; refuses
+    mixed precision."""
     net = params["network"]
-    if net["enc"].get("separate", False):
-        raise NotImplementedError("a separate encoder MLP is not ported yet")
     if params.get("config", {}).get("mixed_precision", False):
         raise NotImplementedError("mixed_precision (bf16 matmuls) is not ported yet")
-    return ASENetwork(
-        obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
-        latent_dim=latent_dim, units=tuple(net["mlp"]["units"]),
-        disc_units=tuple(net["disc"]["units"]),
-        sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]),
-    )
+    return net, dict(units=tuple(net["mlp"]["units"]), disc_units=tuple(net["disc"]["units"]),
+                     sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]))
+
+
+def _init_gen(params) -> torch.Generator:
+    """CPU generator for the initial weights, seeded from the config."""
+    gen = torch.Generator()
+    gen.manual_seed(int(params.get("seed", 0)))
+    return gen
+
+
+def build_amp_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int) -> AMPNetwork:
+    """AMPNetwork from a cfg_train ``params`` block, initialised on the CPU."""
+    _, kw = _checked(params)
+    return AMPNetwork(obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
+                      gen=_init_gen(params), **kw)
+
+
+def build_ase_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int,
+                      latent_dim: int) -> ASENetwork:
+    """ASENetwork from a cfg_train ``params`` block, initialised on the CPU."""
+    net, kw = _checked(params)
+    if net["enc"].get("separate", False):
+        raise NotImplementedError("a separate encoder MLP is not ported yet")
+    return ASENetwork(obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
+                      latent_dim=latent_dim, gen=_init_gen(params), **kw)
 
 
 def sample_latents(gen: torch.Generator, n: int, latent_dim: int, device) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """CLI flags + YAML config loading (port of ``ase_tpu/utils/config.py``).
 
-Only the flags of the ``--test`` (player) path are ported; the training
-flags (``--resume``, ``--max_iterations``, ``--multi_gpu`` ...) come with the
-training slice. ``--device`` replaces the reference's ``--rl_device``: the
-port runs on ``cuda`` unless told otherwise.
+The flags of the player (``--test``) and of training; ``--resume``,
+``--multi_gpu`` and ``--horovod`` parse, and ``run.py`` refuses them until
+saving and multi-GPU are ported. ``--device`` replaces the reference's
+``--rl_device``: the port runs on ``cuda`` unless told otherwise.
 """
 
 from __future__ import annotations
@@ -32,8 +32,11 @@ def get_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="ase_tpu_torch runner")
     p.add_argument("--test", action="store_true", help="Run trained policy, no training")
     p.add_argument("--play", action="store_true", help="Alias for --test")
+    p.add_argument("--resume", type=int, default=0, help="Resume training (not ported yet)")
     p.add_argument("--checkpoint", type=str, default="Base", help="Checkpoint path")
     p.add_argument("--headless", action="store_true", default=True)
+    p.add_argument("--horovod", action="store_true", help="Multi-GPU (not ported yet)")
+    p.add_argument("--multi_gpu", action="store_true", help="Multi-GPU (not ported yet)")
     p.add_argument("--task", type=str, default="HumanoidAMP")
     p.add_argument("--cfg_env", type=str, default="humanoid_sword_shield.yaml")
     p.add_argument("--cfg_train", type=str, default="train/rlg/amp_humanoid.yaml")
@@ -41,6 +44,9 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_envs", type=int, default=0)
     p.add_argument("--episode_length", type=int, default=0)
     p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--max_iterations", type=int, default=0)
+    p.add_argument("--horizon_length", type=int, default=-1)
+    p.add_argument("--minibatch_size", type=int, default=-1)
     p.add_argument("--randomize", action="store_true", help="Domain randomization")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device; the port runs on the card unless 'cpu' is given")
@@ -71,7 +77,14 @@ def load_cfg(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     else:
         cfg["task"] = {"randomize": bool(args.randomize)}
 
-    cfg_train["params"]["config"]["num_actors"] = cfg["env"]["numEnvs"]
+    train_cfg = cfg_train["params"]["config"]
+    train_cfg["num_actors"] = cfg["env"]["numEnvs"]
+    if args.max_iterations > 0:
+        train_cfg["max_epochs"] = args.max_iterations
+    if args.horizon_length > -1:
+        train_cfg["horizon_length"] = args.horizon_length
+    if args.minibatch_size > -1:
+        train_cfg["minibatch_size"] = args.minibatch_size
 
     seed = cfg_train["params"].get("seed", -1)
     if args.seed != -1:

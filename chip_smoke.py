@@ -35,6 +35,18 @@ Phases, each printed with its wall time against its budget:
 6. check   -- one engine tick on 8 of those envs, on the card (kernels) and
               on the CPU (plain versions), must agree within the tolerances
               of ``check_tick`` (shared with tests/test_torch_cuda.py).
+7. train   -- ``ase_tpu_torch.run``'s training branch with the shipped
+              ase_humanoid.yaml at its full widths and 4096 envs for
+              TRAIN_EPOCHS epochs (only the epoch count is cut): per epoch
+              the wall time with its rollout/update split, training
+              env-steps/s, the losses, the Cholesky kernels' launches
+              (exactly 128 each: 32 steps x 2 ticks x 2 substeps; counters
+              zeroed after construction) and peak device memory. Every
+              metric must be finite, the weights must change and the
+              latents stay unit-norm. Then ``check_minibatch``: one
+              full-width minibatch update of 256 rows from the same weights,
+              batch and draws on the card and on the CPU must agree (shared
+              with tests/test_torch_cuda.py).
 
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
@@ -53,8 +65,10 @@ import time
 STEPS = 16
 FALL_LAUNCHES = 150 * 2          # fall-state drop: 150 ticks x 2 substeps
 TOTAL_BUDGET_S = 570
+TRAIN_EPOCHS = 2
+TRAIN_LAUNCHES = 32 * 2 * 2      # per epoch: horizon 32 x 2 ticks x 2 substeps
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
-            "check": 60}
+            "check": 60, "train": 200}
 REPO = os.path.dirname(os.path.abspath(__file__))
 PLAYER_ARGV = [
     "--test", "--task", "HumanoidAMPGetup",
@@ -64,12 +78,24 @@ PLAYER_ARGV = [
     "--checkpoint", "data/models/ase_llc_reallusion_sword_shield.ckpt.npz",
     "--num_envs", "4096",
 ]
+TRAIN_ARGV = [
+    "--task", "HumanoidAMPGetup",
+    "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml",
+    "--num_envs", "4096", "--max_iterations", str(TRAIN_EPOCHS), "--seed", "0",
+]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # float32 outside the tensor cores
 COLD_BYTES = 100e6               # twice the H100's 50 MB L2
 TOL = 1e-4                       # relative to the largest plain-version magnitude
 TICK_POS_TOL = 5e-5              # one tick, card vs CPU: positions and rotations, absolute
 TICK_VEL_RTOL = 1e-4             # ... velocities, relative to their largest magnitude
+MB_LOSS_RTOL = 1e-4              # minibatch update, card vs CPU: losses, of max(1, |loss|)
+MB_W_ATOL = 1e-2                 # ... new weights within MB_W_ATOL x lr, but for at most
+MB_W_FRAC = 5e-3                 # MB_W_FRAC of each tensor's entries (or MB_W_COUNT entries,
+MB_W_COUNT = 2                   # whichever is more), which stay within MB_W_MAX x lr
+MB_W_MAX = 2.01                  # (Adam's first step is at most lr on each side)
 
 
 class Failed(Exception):
@@ -432,6 +458,174 @@ def check_phase(player):
                env._pd_action_offset[None] + env._pd_action_scale[None] * act)
 
 
+def _train_widths(agent):
+    """The shipped config's full widths, as the train phase must run them."""
+    net = agent.network
+    got = {
+        "actor": [l.out_features for l in net.actor_mlp.layers],
+        "critic": [l.out_features for l in net.critic_mlp.layers],
+        "disc": [l.out_features for l in net.disc_mlp.layers],
+        "style": [l.out_features for l in net.style_net.mlp.layers],
+        "latent_dim": agent._latent_dim, "minibatch": agent.minibatch_size,
+        "mini_epochs": agent.mini_epochs, "minibatches": agent.num_minibatches,
+        "demo_buffer": agent.demo_buffer.capacity, "replay_buffer": agent.replay_buffer.capacity,
+        "envs": agent.num_actors, "horizon": agent.horizon_length,
+    }
+    want = {"actor": [1024, 1024, 512], "critic": [1024, 1024, 512], "disc": [1024, 1024, 512],
+            "style": [512, 256], "latent_dim": 64, "minibatch": 16384, "mini_epochs": 6,
+            "minibatches": 8, "demo_buffer": 200000, "replay_buffer": 200000, "envs": 4096,
+            "horizon": 32}
+    if got != want:
+        raise Failed(f"train phase not at the shipped widths: {got}")
+    return got
+
+
+def train_phase(card, rows):
+    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, then
+    ``check_minibatch`` on the trained agent. Returns the epoch records."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    agent, _, _ = run.build_agent(TRAIN_ARGV)
+    t0 = time.time()
+    env_state = agent.setup_training()
+    torch.cuda.synchronize()
+    print(f"train setup: {time.time() - t0:.1f} s (demo buffer fill, fall-state drop, initial "
+          f"reset); widths {_train_widths(agent)}", flush=True)
+    before = [p.detach().clone() for p in agent.network.parameters()]
+    records = []
+
+    def on_epoch(rec):
+        rec["launches"] = {k: chol.LAUNCHES[k] for k in ("chol_forward2", "back_solve")}
+        chol.reset_launches()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        m = rec["metrics"]
+        chol_ms = sum(rec["launches"][k] * rows[k]["cold_ms"] for k in rec["launches"])
+        print(f"train epoch {rec['epoch']}: wall {rec['wall_s']:.2f} s (rollout "
+              f"{rec['rollout_s']:.2f} s, update {rec['update_s']:.2f} s), "
+              f"{rec['env_steps_per_s']:.1f} env-steps/s; " + ", ".join(
+                  f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "disc_loss", "enc_loss",
+                                               "diversity_loss", "kl"))
+              + f"; launches {rec['launches']}, Cholesky kernels ~{chol_ms:.1f} ms "
+              f"({100 * chol_ms / 1e3 / rec['wall_s']:.3f}% of the epoch at their cold_ms); "
+              f"peak device memory {rec['peak_gib']:.2f} GiB ({card})", flush=True)
+        records.append(rec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chol.reset_launches()
+    env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
+    if len(records) != TRAIN_EPOCHS:
+        raise Failed(f"trained {len(records)} epochs, want {TRAIN_EPOCHS}")
+    for rec in records:
+        bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise Failed(f"epoch {rec['epoch']}: non-finite metrics {bad}")
+        for k, n in rec["launches"].items():
+            if n != TRAIN_LAUNCHES:
+                raise Failed(f"epoch {rec['epoch']}: {k} launched {n} times, want "
+                             f"{TRAIN_LAUNCHES} (32 steps x 2 ticks x 2 substeps)")
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(agent.network.parameters(), before))
+    if moved < len(before):
+        raise Failed(f"training changed {moved} of {len(before)} weight tensors")
+    norms = torch.linalg.norm(agent.roll_state["ase_latents"], dim=-1)
+    if float((norms - 1).abs().max()) > 1e-4:
+        raise Failed("ASE latents are not unit-norm after training")
+    if not bool(torch.isfinite(env_state.obs).all()):
+        raise Failed("non-finite observations after training")
+    check_minibatch(agent)
+    return records
+
+
+def _twin(agent, device, z):
+    """A copy of ``agent``'s network, normalizers and hyperparameters on
+    ``device`` with a fresh Adam, whose diversity draw returns ``z``."""
+    import copy
+
+    import torch
+
+    twin = copy.copy(agent)
+    twin.device = torch.device(device)
+    twin.network = copy.deepcopy(agent.network).to(device)
+    twin.obs_rms = copy.deepcopy(agent.obs_rms).to(device)
+    twin.amp_rms = copy.deepcopy(agent.amp_rms).to(device)
+    twin.optimizer = twin._make_optimizer()
+    twin._draw_diversity_latents = lambda n: z.to(device)
+    return twin
+
+
+def check_minibatch(agent, rows=256, seed=0):
+    """One minibatch update (normalizer updates, PPO + discriminator +
+    encoder + diversity losses, backward, Adam step) of ``rows`` rows from
+    ``agent``'s weights, on the card and on the CPU, with the same batch and
+    draws. Raises Failed unless every loss agrees to MB_LOSS_RTOL of
+    max(1, |loss|) and, in every weight tensor, all but MB_W_FRAC of the
+    entries (at least MB_W_COUNT may be excepted) agree to MB_W_ATOL x lr and
+    all to MB_W_MAX x lr. The exceptions: Adam's first step is lr x g / |g|,
+    so an entry whose gradient is near rounding takes either sign, at most
+    a few in a tensor of any size; and a relu pre-activation
+    within rounding of 0 may open on one device and not the other, which
+    changes that row's share of the unit's incoming-weight gradient (at the
+    full widths about one such gate per minibatch; it showed as a 2e-3
+    relative error in the first discriminator layer's gradient on the card,
+    against float64, with every other tensor within 1e-5), which moves at
+    most one row of one weight matrix and one bias entry. Returns (max loss
+    error relative, the most entries of one tensor beyond MB_W_ATOL x lr)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    n, A, L = rows, agent.action_dim, agent._latent_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    z = randn(n, L)
+    z = z / torch.linalg.norm(z, dim=-1, keepdim=True)
+    obs = randn(n, agent.obs_dim) * 2 + 0.5
+    cpu = _twin(agent, "cpu", randn(n, L))
+    with torch.no_grad():
+        mu, log_sigma = cpu.network.eval_actor(cpu.obs_rms.normalize(obs), z)
+        actions = mu + 0.05 * randn(n, A)
+        neglogp = cpu._neglogp(actions, mu, log_sigma) + 0.15 * randn(n)
+    mb = {"obs_n": obs, "actions": actions, "neglogp": neglogp, "values": randn(n, 1),
+          "returns": randn(n, 1), "advantages": randn(n), "mu": mu + 0.01 * randn(n, A),
+          "sigma": log_sigma.clone(), "rand_action_mask": (torch.rand(n, generator=gen) < 0.7).float(),
+          "amp_obs": randn(n, agent.amp_obs_dim), "amp_obs_replay": randn(n, agent.amp_obs_dim),
+          "amp_obs_demo": randn(n, agent.amp_obs_dim), "ase_latents": z}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        twin = cpu if dev == "cpu" else _twin(agent, "cuda", cpu._draw_diversity_latents(n))
+        twin._amp_minibatch_size = n
+        metrics = twin._update_minibatch({k: v.to(dev) for k, v in mb.items()})
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    [p.detach().cpu() for p in twin.network.parameters()])
+    loss_err = 0.0
+    for k, ref in out["cpu"][0].items():
+        got = out["cuda"][0][k]
+        e = abs(got - ref) / max(1.0, abs(ref))
+        if not e <= MB_LOSS_RTOL:
+            raise Failed(f"minibatch {k}: card {got} vs CPU {ref}")
+        loss_err = max(loss_err, e)
+    lr = agent.learning_rate
+    worst = (0, "")
+    names = [name for name, _ in agent.network.named_parameters()]
+    for name, w_gpu, w_cpu in zip(names, out["cuda"][1], out["cpu"][1]):
+        err = (w_gpu - w_cpu).abs() / lr
+        n_off = int((err > MB_W_ATOL).sum())
+        allowed = max(MB_W_FRAC * err.numel(), MB_W_COUNT)
+        if not (n_off <= allowed and float(err.max()) <= MB_W_MAX):
+            raise Failed(f"minibatch weights {name}: card vs CPU beyond {MB_W_ATOL} x lr in "
+                         f"{n_off} of {err.numel()} entries (allowed {allowed:g}), "
+                         f"{float(err.max()):.3g} x lr at most")
+        worst = max(worst, (n_off, f"{name}: {n_off} of {err.numel()}"))
+    print(f"  minibatch check ({rows} rows): losses within {loss_err:.3g} (tol {MB_LOSS_RTOL}); "
+          f"most weights beyond {MB_W_ATOL} x lr in one tensor: {worst[1] if worst[0] else 'none'}", flush=True)
+    return loss_err, worst[0]
+
+
 def main():
     t_start = time.time()
     signal.signal(signal.SIGALRM, _timeout)
@@ -444,14 +638,19 @@ def main():
     launches, player = phase("player", lambda: player_phase(card), t_start)
     phase("profile", lambda: profile_phase(player, card), t_start)
     phase("check", lambda: check_phase(player), t_start)
+    del player
+    torch.cuda.empty_cache()
+    records = phase("train", lambda: train_phase(card, rows), t_start)
     signal.alarm(0)
+    train_launches = {k: sum(r["launches"].get(k, 0) for r in records)
+                      for k in ("chol_forward2", "back_solve", "chol_forward")}
     replaces = {"chol_forward2": "ase_tpu/ops/pallas_chol.py:122",
                 "back_solve": "ase_tpu/ops/pallas_chol.py:145",
                 "chol_forward": "ase_tpu/ops/pallas_chol.py:105"}
     # chol_forward (one right-hand side) is public API the engine does not call
     kernels = [dict(name=k, route="cuda", source="ase_tpu_torch/csrc/chol.cu",
-                    replaces=replaces[k], launches=launches[k], on_path=k != "chol_forward",
-                    **rows[k])
+                    replaces=replaces[k], launches=launches[k],
+                    train_launches=train_launches[k], on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

@@ -116,3 +116,47 @@ def test_engine_tick_on_the_card_matches_the_cpu(cuda):
     act = torch.as_tensor(rng.uniform(-1, 1, (8, 31)).astype(np.float32))
     chip_smoke.check_tick(model, engine.SimConfig(solver=SolverConfig(matvec_bf16=False)),
                           st, act)
+
+
+def _small_ase_agent(device):
+    """An ASEAgent on 8 HumanoidAMPGetup envs with small widths (32-16,
+    latent 8): the config of tests/test_learning.py's TRAIN_CFG."""
+    import yaml
+
+    from ase_tpu_torch.envs import parse_task
+    from ase_tpu_torch.learning.ase_agent import ASEAgent
+    from ase_tpu_torch.utils import paths
+
+    with open(paths.data_path("cfg", "humanoid_ase_sword_shield_getup.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["env"].update({"numEnvs": 8, "resetChunk": 4,
+                       "motion_file": "reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"})
+    cfg["task"] = {"randomize": False}
+    with open(paths.data_path("cfg", "train/rlg/ase_humanoid.yaml")) as f:
+        cfg_train = yaml.safe_load(f)
+    net = cfg_train["params"]["network"]
+    net["mlp"]["units"] = net["disc"]["units"] = net["enc"]["units"] = [32, 16]
+    cfg_train["params"]["seed"] = 7
+    c = cfg_train["params"]["config"]
+    c.update({"latent_dim": 8, "horizon_length": 4, "minibatch_size": 8,
+              "learning_rate": 2e-4})
+    return ASEAgent(parse_task("HumanoidAMPGetup", cfg, device=device), cfg_train)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 256])
+def test_minibatch_update_on_the_card_matches_the_cpu(cuda, rows):
+    """One minibatch update (normalizer updates, PPO + discriminator with
+    its second-order grad penalty + encoder + diversity losses, backward,
+    Adam step) from the same weights, batch and draws on the card and on the
+    CPU: losses within 1e-4 of max(1, |loss|); in each weight tensor all
+    but 0.5% of the entries (or 2, whichever is more) within 1e-2 x lr and
+    every entry within 2.01 x lr (rounding-noise gradients and relu gates
+    that open on one device only; see ``chip_smoke.check_minibatch``, which
+    the smoke run applies at the full widths)."""
+    import chip_smoke
+
+    assert (chip_smoke.MB_LOSS_RTOL, chip_smoke.MB_W_ATOL, chip_smoke.MB_W_FRAC,
+            chip_smoke.MB_W_COUNT, chip_smoke.MB_W_MAX) == (1e-4, 1e-2, 5e-3, 2, 2.01)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.check_minibatch(_small_ase_agent(cuda), rows=rows, seed=rows)

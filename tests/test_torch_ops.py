@@ -140,10 +140,11 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_or_reference_package():
-    """Every module of ase_tpu_torch (top level and inside functions), and
-    chip_smoke.py, imports neither jax, flax nor ase_tpu."""
+    """Every module of ase_tpu_torch (top level and inside functions),
+    chip_smoke.py and bench_torch.py import neither jax, flax, optax nor
+    ase_tpu."""
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    files.append(os.path.join(os.path.dirname(PKG), "chip_smoke.py"))
+    files += [os.path.join(os.path.dirname(PKG), f) for f in ("chip_smoke.py", "bench_torch.py")]
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):
