@@ -6,7 +6,8 @@ The workload of bench.py: HumanoidAMPGetup on the sword-shield humanoid,
 the 87-clip Reallusion dataset, self-collision on, 4096 envs, horizon 32,
 minibatch min(16384, envs x horizon), resetChunk 512, and the ASEAgent's
 full PPO + AMP + ASE update at the shipped widths, float32
-(``mixed_precision: false``, TF32 off). After the train state, the
+(``mixed_precision: false``, TF32 off), built by ``ase_tpu_torch.run``'s
+``build_agent`` as the training CLI builds it. After the train state, the
 fall-state drop and one warm-up epoch, N epochs are timed on the host
 clock, ending in a device sync.
 
@@ -19,14 +20,21 @@ bench.py does not describe this card. Needs the card.
 
 import argparse
 import json
-import os
 import subprocess
 import time
 
 import torch
-import yaml
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+# the agent the training CLI builds (chip_smoke.py's train phase passes the
+# same flags); bench.py's self-collision and resetChunk 512 are the shipped
+# env config's own, and are checked, not set
+ARGV = [
+    "--task", "HumanoidAMPGetup",
+    "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml",
+    "--seed", "0",
+]
 
 
 def main(argv=None):
@@ -37,32 +45,16 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch.py measures the card: torch.cuda.is_available() is false")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    from ase_tpu_torch.envs import parse_task
-    from ase_tpu_torch.learning.ase_agent import ASEAgent
-    from ase_tpu_torch.utils import paths
+    from ase_tpu_torch import run
 
-    with open(os.path.join(ROOT, "data/cfg/humanoid_ase_sword_shield_getup.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    env = cfg["env"]
-    env["numEnvs"] = args.num_envs
-    env["motion_file"] = paths.default_dataset()
-    env["enableSelfCollision"] = True
-    env["resetChunk"] = 512
-    cfg["task"] = {"randomize": False}
-    with open(os.path.join(ROOT, "data/cfg/train/rlg/ase_humanoid.yaml")) as f:
-        cfg_train = yaml.safe_load(f)
-    cfg_train["params"]["seed"] = 0
-    c = cfg_train["params"]["config"]
-    c["horizon_length"] = args.horizon
-    c["minibatch_size"] = min(16384, args.num_envs * args.horizon)
-    c["mixed_precision"] = False
-    if args.num_envs < 1024:   # keep the AMP buffers proportional on small runs
-        c["amp_obs_demo_buffer_size"] = c["amp_replay_buffer_size"] = 4096
-
-    agent = ASEAgent(parse_task("HumanoidAMPGetup", cfg, device="cuda"), cfg_train)
+    agent, _, _ = run.build_agent(ARGV + [
+        "--num_envs", str(args.num_envs), "--horizon_length", str(args.horizon),
+        "--minibatch_size", str(min(16384, args.num_envs * args.horizon))])
+    mixed = agent.cfg_train["params"]["config"].get("mixed_precision", False)
+    if not (agent.env.sim_cfg.enable_self_collision and agent.env.reset_chunk == 512 and not mixed):
+        raise SystemExit("bench_torch.py runs bench.py's workload: self-collision on, "
+                         "resetChunk 512, mixed_precision false")
     t0 = time.time()
     env_state = agent.setup_training()
     env_state, _ = agent.train_epoch(env_state)          # warm-up
@@ -88,7 +80,7 @@ def main(argv=None):
         "unit": f"env-steps/s (full ASE train epoch, {args.num_envs} envs, horizon "
                 f"{args.horizon}, one card)",
         "name": name.strip(), "power.limit": power.strip(),
-        "mixed_precision": False, "epochs": args.epochs,
+        "mixed_precision": mixed, "epochs": args.epochs,
         "rollout_s_per_epoch": rollout_s / args.epochs, "update_s_per_epoch": update_s / args.epochs,
         "setup_and_warmup_s": setup_s,
     }))

@@ -45,8 +45,10 @@ Phases, each printed with its wall time against its budget:
               metric must be finite, the weights must change and the
               latents stay unit-norm. Then ``check_minibatch``: one
               full-width minibatch update of 256 rows from the same weights,
-              batch and draws on the card and on the CPU must agree (shared
-              with tests/test_torch_cuda.py).
+              batch and draws on the card and on the CPU, held against a
+              float64 witness: losses, every gradient before the Adam step,
+              the step itself and the new weights (shared with
+              tests/test_torch_cuda.py).
 
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
@@ -92,10 +94,11 @@ TOL = 1e-4                       # relative to the largest plain-version magnitu
 TICK_POS_TOL = 5e-5              # one tick, card vs CPU: positions and rotations, absolute
 TICK_VEL_RTOL = 1e-4             # ... velocities, relative to their largest magnitude
 MB_LOSS_RTOL = 1e-4              # minibatch update, card vs CPU: losses, of max(1, |loss|)
-MB_W_ATOL = 1e-2                 # ... new weights within MB_W_ATOL x lr, but for at most
-MB_W_FRAC = 5e-3                 # MB_W_FRAC of each tensor's entries (or MB_W_COUNT entries,
-MB_W_COUNT = 2                   # whichever is more), which stay within MB_W_MAX x lr
-MB_W_MAX = 2.01                  # (Adam's first step is at most lr on each side)
+MB_GRAD_RTOL = 1e-4              # ... gradients vs a float64 witness, of each tensor's largest
+MB_GATE_RTOL = 1e-5              # ... a relu gate off the witness's: |pre-activation| of the layer's largest
+MB_STEP_ATOL = 1e-3              # ... new weights vs Adam's first step from the side's own gradients, x lr
+MB_W_ATOL = 1e-2                 # ... new weights card vs CPU, x lr, where the witness's |g| is
+MB_W_GMIN = 1e-4                 #     above MB_W_GMIN of its tensor's largest
 
 
 class Failed(Exception):
@@ -365,6 +368,9 @@ def player_phase(card):
         if launches[k] != want:
             raise Failed(f"{k} launched {launches[k]} times, want {want} "
                          f"(150 fall ticks x 2 substeps + {STEPS} steps x 2 ticks x 2 substeps)")
+    if launches["chol_forward"] != 0:
+        raise Failed(f"chol_forward launched {launches['chol_forward']} times on the player "
+                     "path, which calls only chol_forward2")
     es = player.env_state
     for what, t in (("obs", es.obs), ("actions", player.last_actions),
                     ("rewards", player.last_rewards)):
@@ -497,19 +503,20 @@ def train_phase(card, rows):
     records = []
 
     def on_epoch(rec):
-        rec["launches"] = {k: chol.LAUNCHES[k] for k in ("chol_forward2", "back_solve")}
+        rec["launches"] = dict(chol.LAUNCHES)
         chol.reset_launches()
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         m = rec["metrics"]
-        chol_ms = sum(rec["launches"][k] * rows[k]["cold_ms"] for k in rec["launches"])
+        chol_ms = sum(n * rows[k]["cold_ms"] for k, n in rec["launches"].items())
         print(f"train epoch {rec['epoch']}: wall {rec['wall_s']:.2f} s (rollout "
               f"{rec['rollout_s']:.2f} s, update {rec['update_s']:.2f} s), "
               f"{rec['env_steps_per_s']:.1f} env-steps/s; " + ", ".join(
                   f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "disc_loss", "enc_loss",
                                                "diversity_loss", "kl"))
               + f"; launches {rec['launches']}, Cholesky kernels ~{chol_ms:.1f} ms "
-              f"({100 * chol_ms / 1e3 / rec['wall_s']:.3f}% of the epoch at their cold_ms); "
+              f"({100 * chol_ms / 1e3 / rec['wall_s']:.3f}% of the epoch; an estimate: "
+              f"launches x cold_ms, no trace); "
               f"peak device memory {rec['peak_gib']:.2f} GiB ({card})", flush=True)
         records.append(rec)
 
@@ -523,10 +530,10 @@ def train_phase(card, rows):
         bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
         if bad:
             raise Failed(f"epoch {rec['epoch']}: non-finite metrics {bad}")
-        for k, n in rec["launches"].items():
-            if n != TRAIN_LAUNCHES:
-                raise Failed(f"epoch {rec['epoch']}: {k} launched {n} times, want "
-                             f"{TRAIN_LAUNCHES} (32 steps x 2 ticks x 2 substeps)")
+        want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+        if rec["launches"] != want:
+            raise Failed(f"epoch {rec['epoch']}: launches {rec['launches']}, want {want} "
+                         f"(32 steps x 2 ticks x 2 substeps; the engine never calls chol_forward)")
     moved = sum(float((p.detach() - q).abs().max()) > 0
                 for p, q in zip(agent.network.parameters(), before))
     if moved < len(before):
@@ -540,40 +547,74 @@ def train_phase(card, rows):
     return records
 
 
-def _twin(agent, device, z):
+def _twin(agent, device, z, dtype=None):
     """A copy of ``agent``'s network, normalizers and hyperparameters on
-    ``device`` with a fresh Adam, whose diversity draw returns ``z``."""
+    ``device`` (in ``dtype`` if given) with a fresh Adam, whose diversity
+    draw returns ``z``."""
     import copy
 
     import torch
 
     twin = copy.copy(agent)
     twin.device = torch.device(device)
-    twin.network = copy.deepcopy(agent.network).to(device)
-    twin.obs_rms = copy.deepcopy(agent.obs_rms).to(device)
-    twin.amp_rms = copy.deepcopy(agent.amp_rms).to(device)
+    twin.network = copy.deepcopy(agent.network).to(device, dtype)
+    twin.obs_rms = copy.deepcopy(agent.obs_rms).to(device, dtype)
+    twin.amp_rms = copy.deepcopy(agent.amp_rms).to(device, dtype)
     twin.optimizer = twin._make_optimizer()
-    twin._draw_diversity_latents = lambda n: z.to(device)
+    twin._draw_diversity_latents = lambda n: z.to(device, dtype)
     return twin
 
 
-def check_minibatch(agent, rows=256, seed=0):
+def _gate_mlps(net, gates=None):
+    """Make every relu of ``net``'s MLPs record its pre-activation, in call
+    order, into the returned list. With ``gates`` (such a list's signs, in
+    the same order) each relu applies the given gate in place of its
+    pre-activation's own sign: pre x gate, which has relu's value and first
+    and second derivatives when the gates are the pre-activations' own."""
+    import types
+
+    from ase_tpu_torch.models.networks import MLP
+
+    pres = []
+    given = None if gates is None else iter(gates)
+
+    def forward(self, x):
+        for layer in self.layers:
+            pre = layer(x)
+            pres.append(pre.detach())
+            gate = pre > 0 if given is None else next(given).to(pre.device)
+            x = pre * gate.to(pre.dtype)
+        return x
+
+    for m in net.modules():
+        if isinstance(m, MLP):
+            m.forward = types.MethodType(forward, m)
+    return pres
+
+
+def check_minibatch(agent, rows=256, seed=0, device="cuda"):
     """One minibatch update (normalizer updates, PPO + discriminator +
     encoder + diversity losses, backward, Adam step) of ``rows`` rows from
-    ``agent``'s weights, on the card and on the CPU, with the same batch and
-    draws. Raises Failed unless every loss agrees to MB_LOSS_RTOL of
-    max(1, |loss|) and, in every weight tensor, all but MB_W_FRAC of the
-    entries (at least MB_W_COUNT may be excepted) agree to MB_W_ATOL x lr and
-    all to MB_W_MAX x lr. The exceptions: Adam's first step is lr x g / |g|,
-    so an entry whose gradient is near rounding takes either sign, at most
-    a few in a tensor of any size; and a relu pre-activation
-    within rounding of 0 may open on one device and not the other, which
-    changes that row's share of the unit's incoming-weight gradient (at the
-    full widths about one such gate per minibatch; it showed as a 2e-3
-    relative error in the first discriminator layer's gradient on the card,
-    against float64, with every other tensor within 1e-5), which moves at
-    most one row of one weight matrix and one bias entry. Returns (max loss
-    error relative, the most entries of one tensor beyond MB_W_ATOL x lr)."""
+    ``agent``'s weights, on ``device`` and on the CPU in float32, with the
+    same batch and draws, against a float64 witness on the CPU.
+
+    A relu pre-activation within rounding of 0 may open on one side and not
+    on the other, which changes that sample's backward through every layer
+    below it; at the full widths that happens about once a minibatch. So
+    the witness runs with its own relu gates and both float32 sides run with
+    the witness's gates, and the check first shows that each side's own
+    gates differ from them only where the witness's pre-activation is
+    within MB_GATE_RTOL of that layer's largest. Then it raises Failed
+    unless: every loss agrees card vs CPU to MB_LOSS_RTOL of max(1, |loss|);
+    every gradient, before the Adam step, agrees with the witness's to
+    MB_GRAD_RTOL of its tensor's largest magnitude on both sides; each
+    side's new weights are its old ones less Adam's first step from its own
+    gradients, lr x g / (|g| + eps), to MB_STEP_ATOL x lr (and one float32
+    ulp); and the new weights agree card vs CPU to MB_W_ATOL x lr wherever
+    the witness's |g| exceeds MB_W_GMIN of its tensor's largest (below
+    that, the first step lr x sign(g) takes the sign of rounding noise).
+    Returns the largest relative loss error, the largest gradient error
+    relative to its tensor and the gate differences per side."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -585,45 +626,95 @@ def check_minibatch(agent, rows=256, seed=0):
     z = randn(n, L)
     z = z / torch.linalg.norm(z, dim=-1, keepdim=True)
     obs = randn(n, agent.obs_dim) * 2 + 0.5
-    cpu = _twin(agent, "cpu", randn(n, L))
+    z_div = randn(n, L)
+    base = _twin(agent, "cpu", z_div)
     with torch.no_grad():
-        mu, log_sigma = cpu.network.eval_actor(cpu.obs_rms.normalize(obs), z)
+        mu, log_sigma = base.network.eval_actor(base.obs_rms.normalize(obs), z)
         actions = mu + 0.05 * randn(n, A)
-        neglogp = cpu._neglogp(actions, mu, log_sigma) + 0.15 * randn(n)
+        neglogp = base._neglogp(actions, mu, log_sigma) + 0.15 * randn(n)
     mb = {"obs_n": obs, "actions": actions, "neglogp": neglogp, "values": randn(n, 1),
           "returns": randn(n, 1), "advantages": randn(n), "mu": mu + 0.01 * randn(n, A),
           "sigma": log_sigma.clone(), "rand_action_mask": (torch.rand(n, generator=gen) < 0.7).float(),
           "amp_obs": randn(n, agent.amp_obs_dim), "amp_obs_replay": randn(n, agent.amp_obs_dim),
           "amp_obs_demo": randn(n, agent.amp_obs_dim), "ase_latents": z}
-    out = {}
-    for dev in ("cuda", "cpu"):
-        twin = cpu if dev == "cpu" else _twin(agent, "cuda", cpu._draw_diversity_latents(n))
+
+    def update(dev, dtype, gates=None):
+        twin = _twin(agent, dev, z_div, dtype)
         twin._amp_minibatch_size = n
-        metrics = twin._update_minibatch({k: v.to(dev) for k, v in mb.items()})
-        out[dev] = ({k: float(v) for k, v in metrics.items()},
-                    [p.detach().cpu() for p in twin.network.parameters()])
+        pres = _gate_mlps(twin.network, gates)
+        params = list(twin.network.parameters())
+        old = [p.detach().cpu().double() for p in params]
+        metrics = twin._update_minibatch({k: v.to(dev, dtype) for k, v in mb.items()})
+        if gates is not None and len(pres) != len(gates):
+            raise Failed(f"minibatch check: {len(pres)} relu calls on {dev}, {len(gates)} in the witness")
+        (group,) = twin.optimizer.param_groups
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": [torch.zeros_like(o) if p.grad is None else p.grad.detach().cpu().double()
+                          for p, o in zip(params, old)],
+                "old": old, "new": [p.detach().cpu().double() for p in params],
+                "pres": [x.cpu().double() for x in pres], "lr": group["lr"], "eps": group["eps"]}
+
+    wit = update("cpu", torch.float64)
+    gates = [x > 0 for x in wit["pres"]]
+    sides = {"card": update(device, torch.float32, gates), "cpu": update("cpu", torch.float32, gates)}
+    names = [name for name, _ in agent.network.named_parameters()]
+    f32_ulp = torch.finfo(torch.float32).eps
+
+    flips = {}
+    for side, out in sides.items():
+        flips[side] = 0
+        for i, (pre, pre64) in enumerate(zip(out["pres"], wit["pres"])):
+            off = (pre > 0) != gates[i]
+            flips[side] += int(off.sum())
+            if bool(off.any()):
+                near = float(pre64[off].abs().max()) / max(float(pre64.abs().max()), 1e-30)
+                if not near <= MB_GATE_RTOL:
+                    raise Failed(f"minibatch relu call {i} on the {side} side: a gate differs from "
+                                 f"the witness's at a pre-activation {near:.3g} of the layer's largest")
+
     loss_err = 0.0
-    for k, ref in out["cpu"][0].items():
-        got = out["cuda"][0][k]
+    for k, ref in sides["cpu"]["metrics"].items():
+        got = sides["card"]["metrics"][k]
         e = abs(got - ref) / max(1.0, abs(ref))
         if not e <= MB_LOSS_RTOL:
             raise Failed(f"minibatch {k}: card {got} vs CPU {ref}")
         loss_err = max(loss_err, e)
-    lr = agent.learning_rate
-    worst = (0, "")
-    names = [name for name, _ in agent.network.named_parameters()]
-    for name, w_gpu, w_cpu in zip(names, out["cuda"][1], out["cpu"][1]):
-        err = (w_gpu - w_cpu).abs() / lr
-        n_off = int((err > MB_W_ATOL).sum())
-        allowed = max(MB_W_FRAC * err.numel(), MB_W_COUNT)
-        if not (n_off <= allowed and float(err.max()) <= MB_W_MAX):
-            raise Failed(f"minibatch weights {name}: card vs CPU beyond {MB_W_ATOL} x lr in "
-                         f"{n_off} of {err.numel()} entries (allowed {allowed:g}), "
-                         f"{float(err.max()):.3g} x lr at most")
-        worst = max(worst, (n_off, f"{name}: {n_off} of {err.numel()}"))
+
+    grad_err = (0.0, "")
+    for i, name in enumerate(names):
+        g64 = wit["grads"][i]
+        scale = max(float(g64.abs().max()), 1e-30)
+        for side, out in sides.items():
+            e = float((out["grads"][i] - g64).abs().max()) / scale
+            if not e <= MB_GRAD_RTOL:
+                raise Failed(f"minibatch gradient of {name} on the {side} side: {e:.3g} of its "
+                             f"largest from the float64 witness's (tol {MB_GRAD_RTOL})")
+            grad_err = max(grad_err, (e, f"{name} ({side})"))
+            lr, eps = out["lr"], out["eps"]
+            g, w = out["grads"][i], out["new"][i]
+            want = out["old"][i] - lr * g / (g.abs() + eps)
+            over = (w - want).abs() - (MB_STEP_ATOL * lr + f32_ulp * w.abs())
+            if bool((over > 0).any()):
+                raise Failed(f"minibatch Adam step of {name} on the {side} side: "
+                             f"{float((w - want).abs().max()) / lr:.3g} x lr from lr x g / (|g| + eps)")
+        big = g64.abs() > MB_W_GMIN * scale
+        dw = (sides["card"]["new"][i] - sides["cpu"]["new"][i]).abs()[big]
+        if dw.numel() and not float(dw.max()) <= MB_W_ATOL * sides["cpu"]["lr"]:
+            raise Failed(f"minibatch weights {name}: card vs CPU {float(dw.max()) / sides['cpu']['lr']:.3g}"
+                         f" x lr where |g| > {MB_W_GMIN} of its largest (tol {MB_W_ATOL} x lr)")
+    # what the gates do: both sides again, each with its own gates (not asserted)
+    own = {"card": update(device, torch.float32), "cpu": update("cpu", torch.float32)}
+    own_flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(own["card"]["pres"], own["cpu"]["pres"]))
+    off = {name: int(((own["card"]["new"][i] - own["cpu"]["new"][i]).abs()
+                      > MB_W_ATOL * own["cpu"]["lr"]).sum()) for i, name in enumerate(names)}
+    print(f"  minibatch check, each side on its own relu gates: {own_flips} gates differ card vs CPU; "
+          f"new weights beyond {MB_W_ATOL} x lr card vs CPU: "
+          + (", ".join(f"{k} {v}" for k, v in off.items() if v) or "none"), flush=True)
     print(f"  minibatch check ({rows} rows): losses within {loss_err:.3g} (tol {MB_LOSS_RTOL}); "
-          f"most weights beyond {MB_W_ATOL} x lr in one tensor: {worst[1] if worst[0] else 'none'}", flush=True)
-    return loss_err, worst[0]
+          f"gradients within {grad_err[0]:.3g} of their tensor's largest from the float64 witness "
+          f"(tol {MB_GRAD_RTOL}; worst {grad_err[1]}); relu gates differing from the witness's: "
+          f"card {flips['card']}, CPU {flips['cpu']} of {sum(x.numel() for x in gates)}", flush=True)
+    return loss_err, grad_err[0], flips
 
 
 def main():
@@ -642,7 +733,7 @@ def main():
     torch.cuda.empty_cache()
     records = phase("train", lambda: train_phase(card, rows), t_start)
     signal.alarm(0)
-    train_launches = {k: sum(r["launches"].get(k, 0) for r in records)
+    train_launches = {k: sum(r["launches"][k] for r in records)
                       for k in ("chol_forward2", "back_solve", "chol_forward")}
     replaces = {"chol_forward2": "ase_tpu/ops/pallas_chol.py:122",
                 "back_solve": "ase_tpu/ops/pallas_chol.py:145",

@@ -149,14 +149,67 @@ def test_minibatch_update_on_the_card_matches_the_cpu(cuda, rows):
     """One minibatch update (normalizer updates, PPO + discriminator with
     its second-order grad penalty + encoder + diversity losses, backward,
     Adam step) from the same weights, batch and draws on the card and on the
-    CPU: losses within 1e-4 of max(1, |loss|); in each weight tensor all
-    but 0.5% of the entries (or 2, whichever is more) within 1e-2 x lr and
-    every entry within 2.01 x lr (rounding-noise gradients and relu gates
-    that open on one device only; see ``chip_smoke.check_minibatch``, which
-    the smoke run applies at the full widths)."""
+    CPU, against a float64 witness on the relu gates of the witness (each
+    side's own gates may differ from them only within 1e-5 of a layer's
+    largest pre-activation): losses within 1e-4 of max(1, |loss|); every
+    gradient within 1e-4 of its tensor's largest from the witness's; each
+    side's new weights within 1e-3 x lr of Adam's first step from its own
+    gradients; new weights card vs CPU within 1e-2 x lr where |g| is above
+    1e-4 of its tensor's largest. ``chip_smoke.check_minibatch`` applies the
+    same check at the full widths in the smoke run."""
     import chip_smoke
 
-    assert (chip_smoke.MB_LOSS_RTOL, chip_smoke.MB_W_ATOL, chip_smoke.MB_W_FRAC,
-            chip_smoke.MB_W_COUNT, chip_smoke.MB_W_MAX) == (1e-4, 1e-2, 5e-3, 2, 2.01)
+    assert (chip_smoke.MB_LOSS_RTOL, chip_smoke.MB_GRAD_RTOL, chip_smoke.MB_GATE_RTOL,
+            chip_smoke.MB_STEP_ATOL, chip_smoke.MB_W_ATOL, chip_smoke.MB_W_GMIN) == \
+        (1e-4, 1e-4, 1e-5, 1e-3, 1e-2, 1e-4)
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.check_minibatch(_small_ase_agent(cuda), rows=rows, seed=rows)
+
+
+# The minibatch check itself, on the CPU (its "card" side on the CPU too).
+
+@pytest.fixture(scope="module")
+def small_cpu_agent():
+    torch.set_num_threads(1)
+    return _small_ase_agent(torch.device("cpu"))
+
+
+def test_minibatch_check_passes_on_the_cpu(small_cpu_agent):
+    """The check's witness and gate alignment hold float32 against float64
+    at the tolerances the card test uses."""
+    import chip_smoke
+
+    loss_err, grad_err, _ = chip_smoke.check_minibatch(small_cpu_agent, rows=64, seed=64,
+                                                        device="cpu")
+    assert loss_err == 0.0 and grad_err <= chip_smoke.MB_GRAD_RTOL
+
+
+@pytest.mark.parametrize("fault", ["first_order_grad_penalty", "scaled_gradient"])
+def test_minibatch_check_catches_a_wrong_gradient(small_cpu_agent, monkeypatch, fault):
+    """A float32 side whose grad penalty stops at first order, or whose
+    discriminator-logit gradient is 1% off, fails the check, although its
+    Adam step follows its gradients and its first step moves every weight
+    by about lr either way."""
+    import chip_smoke
+
+    if fault == "first_order_grad_penalty":
+        grad = torch.autograd.grad
+
+        def first_order(outputs, inputs, **kw):
+            if inputs.dtype == torch.float32:
+                kw.update(create_graph=False, retain_graph=True)
+            return grad(outputs, inputs, **kw)
+
+        monkeypatch.setattr(torch.autograd, "grad", first_order)
+    else:
+        twin = chip_smoke._twin
+
+        def scaled(agent, device, z, dtype=None):
+            t = twin(agent, device, z, dtype)
+            if dtype == torch.float32:
+                t.network.disc_logits.weight.register_hook(lambda g: g * 1.01)
+            return t
+
+        monkeypatch.setattr(chip_smoke, "_twin", scaled)
+    with pytest.raises(chip_smoke.Failed, match="gradient of"):
+        chip_smoke.check_minibatch(small_cpu_agent, rows=64, seed=64, device="cpu")
