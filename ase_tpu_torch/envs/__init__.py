@@ -1,18 +1,39 @@
 """Environment layer: batched humanoid tasks (port of ``ase_tpu/envs``).
 
-The registry holds the tasks ported so far; the four task envs with props,
-heading/location/reach and the perturb / view-motion envs come with the HRL
-slice.
+The registry holds every task of the reference; the strike, perturb and
+view-motion tasks raise until their ROADMAP item lands.
 """
 
 from ase_tpu_torch.envs.humanoid import EnvState, Humanoid
 from ase_tpu_torch.envs.humanoid_amp import HumanoidAMP
 from ase_tpu_torch.envs.humanoid_amp_getup import HumanoidAMPGetup
+from ase_tpu_torch.envs.humanoid_amp_task import HumanoidAMPTask
+from ase_tpu_torch.envs.humanoid_heading import HumanoidHeading
+from ase_tpu_torch.envs.humanoid_location import HumanoidLocation
+from ase_tpu_torch.envs.humanoid_reach import HumanoidReach
+
+
+def _not_ported(name: str, item: str):
+    def init(self, cfg, device="cuda"):
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1: {item})")
+
+    return type(name, (), {"__init__": init})
+
+
+HumanoidStrike = _not_ported("HumanoidStrike", "HRL training, props and the strike task")
+HumanoidPerturb = _not_ported("HumanoidPerturb", "perturb and view_motion")
+HumanoidViewMotion = _not_ported("HumanoidViewMotion", "perturb and view_motion")
 
 TASK_REGISTRY = {
     "Humanoid": Humanoid,
     "HumanoidAMP": HumanoidAMP,
     "HumanoidAMPGetup": HumanoidAMPGetup,
+    "HumanoidHeading": HumanoidHeading,
+    "HumanoidLocation": HumanoidLocation,
+    "HumanoidReach": HumanoidReach,
+    "HumanoidStrike": HumanoidStrike,
+    "HumanoidPerturb": HumanoidPerturb,
+    "HumanoidViewMotion": HumanoidViewMotion,
 }
 
 
@@ -21,5 +42,5 @@ def parse_task(task_name: str, cfg, device="cuda"):
     try:
         cls = TASK_REGISTRY[task_name]
     except KeyError:
-        raise ValueError(f"unknown task {task_name!r}; ported: {sorted(TASK_REGISTRY)}")
+        raise ValueError(f"unknown task {task_name!r}; available: {sorted(TASK_REGISTRY)}")
     return cls(cfg, device=device)

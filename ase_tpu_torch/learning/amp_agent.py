@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ase_tpu_torch.learning import checkpoint
 from ase_tpu_torch.learning.common_agent import CommonAgent
 from ase_tpu_torch.learning.replay_buffer import ReplayBuffer
 from ase_tpu_torch.learning.running_mean_std import RunningMeanStd
@@ -33,7 +34,7 @@ DEMO_CHUNK = 16384   # rows per demo fetch while the demo buffer fills
 
 
 class AMPAgent(CommonAgent):
-    def __init__(self, env, cfg_train):
+    def __init__(self, env, cfg_train, output_dir: str = "output"):
         config = cfg_train["params"]["config"]
         self._task_reward_w = float(config["task_reward_w"])
         self._disc_reward_w = float(config["disc_reward_w"])
@@ -51,7 +52,7 @@ class AMPAgent(CommonAgent):
         self._amp_replay_buffer_size = int(config["amp_replay_buffer_size"])
         self._amp_replay_keep_prob = float(config["amp_replay_keep_prob"])
         self.amp_obs_dim = env.amp_obs_size()
-        super().__init__(env, cfg_train)
+        super().__init__(env, cfg_train, output_dir)
         self.amp_rms = RunningMeanStd((self.amp_obs_dim,)).to(self.device)
         self._rand_action_probs = torch.as_tensor(self._build_rand_action_probs(),
                                                   device=self.device)
@@ -106,6 +107,20 @@ class AMPAgent(CommonAgent):
                                           self.device)
         self._fill_demo_buffer()
 
+    def _weight_leaves(self):
+        leaves = super()._weight_leaves()
+        leaves.update(checkpoint.rms_leaves(self.amp_rms, ".extra['amp_rms']"))
+        return leaves
+
+    def ckpt_leaves(self):
+        leaves = super().ckpt_leaves()
+        leaves.update(checkpoint.buffer_leaves(self.demo_buffer, ".extra['demo_buffer']"))
+        leaves.update(checkpoint.buffer_leaves(self.replay_buffer, ".extra['replay_buffer']"))
+        return leaves
+
+    def _transient_extra(self) -> tuple:
+        return super()._transient_extra() + ("extra['demo_buffer']", "extra['replay_buffer']")
+
     @torch.no_grad()
     def _fill_demo_buffer(self) -> None:
         """Fill the demo buffer once, in fetches of at most DEMO_CHUNK rows."""
@@ -118,8 +133,8 @@ class AMPAgent(CommonAgent):
     def _norm_amp(self, amp_obs):
         return self.amp_rms.normalize(amp_obs) if self._normalize_amp_input else amp_obs
 
-    def _record_step(self, env_state, roll, rec):
-        rec = super()._record_step(env_state, roll, rec)
+    def _record_step(self, env_state, roll, rec, infos):
+        rec = super()._record_step(env_state, roll, rec, infos)
         rec["amp_obs"] = self.env.amp_obs_flat(env_state)
         return rec
 

@@ -22,7 +22,7 @@ from ase_tpu_torch.models import networks
 
 
 class ASEAgent(AMPAgent):
-    def __init__(self, env, cfg_train):
+    def __init__(self, env, cfg_train, output_dir: str = "output"):
         config = cfg_train["params"]["config"]
         self._latent_dim = int(config["latent_dim"])
         self._latent_steps_min = int(config.get("latent_steps_min", 1))
@@ -34,16 +34,17 @@ class ASEAgent(AMPAgent):
         self._enc_reward_scale = float(config.get("enc_reward_scale", 1.0))
         self._enc_grad_penalty = float(config.get("enc_grad_penalty", 0.0))
         self._enc_reward_w = float(config["enc_reward_w"])
-        super().__init__(env, cfg_train)
+        super().__init__(env, cfg_train, output_dir)
 
     def _build_network(self):
         return networks.build_ase_network(self.cfg_train["params"], self.obs_dim,
                                           self.action_dim, self.amp_obs_dim, self._latent_dim)
 
-    def restore(self, path: str) -> None:
-        """Policy weights and both normalizers from a reference checkpoint."""
-        checkpoint.load_ase(checkpoint.read_npz_tree(path), self.network,
-                            self.obs_rms, self.amp_rms)
+    def ckpt_leaves(self):
+        leaves = super().ckpt_leaves()
+        for k in ("ase_latents", "latent_reset_steps"):
+            leaves[f".extra['{k}']"] = checkpoint.slot_leaf(self.roll_state, k)
+        return leaves
 
     def _actor_sigma(self, obs_n, roll):
         return self.network.eval_actor(obs_n, roll["ase_latents"])
@@ -89,8 +90,8 @@ class ASEAgent(AMPAgent):
         steps = torch.where(need, steps + d["steps_inc"], steps)
         return env_state, {**roll, "ase_latents": z, "latent_reset_steps": steps}
 
-    def _record_step(self, env_state, roll, rec):
-        rec = super()._record_step(env_state, roll, rec)
+    def _record_step(self, env_state, roll, rec, infos):
+        rec = super()._record_step(env_state, roll, rec, infos)
         rec["ase_latents"] = roll["ase_latents"]
         return rec
 

@@ -13,24 +13,36 @@ The rollout runs eagerly on the env's device under ``torch.no_grad()``
 train state lives on the agent: network, Adam state, normalizers, game
 meters, epoch and frame counters. Every random number the epoch consumes
 comes through one ``_draw_*`` method per consumer, so a test can hand the
-port the reference's numbers. Saving and resuming are not ported yet:
-``train`` writes no checkpoint.
+port the reference's numbers.
+
+``train`` resumes from a checkpoint (strict, in the reference's npz
+layout: ``ckpt_leaves``), writes TensorBoard scalars when given a writer,
+and saves ``{name}.ckpt.npz`` every ``save_frequency`` epochs (with
+``save_intermediate`` also ``{name}_{epoch:08d}.ckpt.npz``, buffers
+included), ``{name}_best.ckpt.npz`` when the windowed game reward beats
+its best after ``save_best_after`` epochs, and ``{name}.ckpt.npz`` at the
+end, all under ``output_dir``. Unless ``save_buffers`` is set, checkpoints
+leave out the reconstructible demo and replay buffers.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from ase_tpu_torch.learning import checkpoint
 from ase_tpu_torch.learning.running_mean_std import RunningMeanStd
 
 
 class CommonAgent:
-    def __init__(self, env, cfg_train: Dict[str, Any]):
+    def __init__(self, env, cfg_train: Dict[str, Any], output_dir: str = "output"):
         self.env = env
+        self.output_dir = output_dir
         self.cfg_train = cfg_train
         config = self.config = cfg_train["params"]["config"]
         self.device = env.device
@@ -54,12 +66,16 @@ class CommonAgent:
         self.kl_threshold = float(config.get("kl_threshold", 0.008))
         self.max_epochs = int(config.get("max_epochs", 10000))
         self.games_to_track = int(config.get("games_to_track", 100))
+        self.save_frequency = int(config.get("save_frequency", 50))
+        self.save_best_after = int(config.get("save_best_after", 50))
+        self._save_intermediate = bool(config.get("save_intermediate", False))
+        self._best_mean_rewards = -1e9
 
         self.batch_size = self.horizon_length * self.num_actors
         self.num_minibatches = self.batch_size // self.minibatch_size
 
         self.obs_dim = env.get_obs_size()
-        self.action_dim = env.get_action_size()
+        self.action_dim = self._actions_num()
         self.obs_rms = RunningMeanStd((self.obs_dim,)).to(self.device)
         self.value_rms = RunningMeanStd((1,)).to(self.device)
         self.gen = torch.Generator(device=self.device)
@@ -70,6 +86,9 @@ class CommonAgent:
         self.frame = 0
 
     # -- overridables -----------------------------------------------------------
+
+    def _actions_num(self) -> int:
+        return self.env.get_action_size()
 
     def _build_network(self) -> torch.nn.Module:
         raise NotImplementedError
@@ -89,11 +108,11 @@ class CommonAgent:
         return env_state, roll
 
     def _env_step(self, env_state, actions):
-        """One env transition; returns (env_state, rewards)."""
+        """One env transition; returns (env_state, rewards, infos)."""
         env_state = self.env.step(env_state, actions)
-        return env_state, env_state.rew
+        return env_state, env_state.rew, {}
 
-    def _record_step(self, env_state, roll, rec):
+    def _record_step(self, env_state, roll, rec, infos):
         """Extend the per-step record (AMP obs, latents, ...)."""
         return rec
 
@@ -157,6 +176,73 @@ class CommonAgent:
         """Train state, then the env's initial state (the reference's order)."""
         self.init_train_state()
         return self.env.initial_state()
+
+    # -- checkpoints ------------------------------------------------------------------
+
+    def _weight_leaves(self) -> Dict[str, checkpoint.Leaf]:
+        """The policy's weights and normalizers (what a player restores)."""
+        leaves = checkpoint.network_leaves(self.network, ".params")
+        leaves.update(checkpoint.rms_leaves(self.obs_rms, ".obs_rms"))
+        leaves.update(checkpoint.rms_leaves(self.value_rms, ".value_rms"))
+        return leaves
+
+    def ckpt_leaves(self) -> Dict[str, checkpoint.Leaf]:
+        """The train state as checkpoint leaves in the reference's layout;
+        needs ``init_train_state``. The best-reward watermark is read when a
+        checkpoint is written (the reference's ``_stamp_best``)."""
+        leaves = self._weight_leaves()
+        # where optax keeps the Adam state: chain(clip, adam) with
+        # truncate_grads, inject_hyperparams(adam) with the adaptive schedule
+        opt = ".opt_state[1]" if self.truncate_grads else ".opt_state"
+        if self.lr_schedule == "adaptive":
+            groups = self.optimizer.param_groups
+
+            def set_lr(a):
+                for g in groups:
+                    g["lr"] = float(a)
+
+            leaves[opt + ".hyperparams['learning_rate']"] = checkpoint.Leaf(
+                (), lambda: np.asarray(groups[0]["lr"], np.float32), set_lr)
+            opt += ".inner_state"
+        leaves.update(checkpoint.adam_leaves(self.optimizer, self.network, opt + "[0]"))
+        leaves[".epoch"] = checkpoint.number_leaf(self, "epoch", np.int32)
+        leaves[".frame"] = checkpoint.number_leaf(self, "frame", np.int32)
+        for k in self.meters:
+            leaves[f".extra['{k}']"] = checkpoint.slot_leaf(self.meters, k)
+        leaves[".extra['best_mean_rewards']"] = checkpoint.number_leaf(
+            self, "_best_mean_rewards", np.float32)
+        leaves[checkpoint.GENERATOR_KEY] = checkpoint.generator_leaf(self.gen)
+        return leaves
+
+    def _transient_extra(self) -> tuple:
+        """Key substrings of reconstructible state left out of checkpoints."""
+        return ()
+
+    def _ckpt_exclude(self) -> tuple:
+        if bool(self.config.get("save_buffers", False)):
+            return ()
+        return self._transient_extra()
+
+    def save(self, path: str, exclude: Optional[tuple] = None) -> str:
+        """Write the train state (less ``_ckpt_exclude`` unless ``exclude``
+        is given) to ``path`` + ``.npz``; returns the file's path."""
+        return checkpoint.save(path, self.ckpt_leaves(),
+                               self._ckpt_exclude() if exclude is None else exclude)
+
+    def restore(self, path: str) -> None:
+        """Weights and normalizers from a checkpoint of either package, at
+        any env count (non-strict: what is missing keeps its value)."""
+        checkpoint.restore(path, self._weight_leaves(), strict=False)
+
+    def resume(self, path: str) -> None:
+        """Strict restore of the whole train state after ``setup_training``:
+        only the excluded buffers, the fields newer than the reference's
+        format and the port's own generator state may be missing. Epoch
+        counting continues from the checkpoint's."""
+        new_fields = ("best_mean_rewards", "game_success_buf", checkpoint.GENERATOR_KEY)
+        checkpoint.restore(path, self.ckpt_leaves(), strict=True,
+                           allow_missing=self._ckpt_exclude() + new_fields)
+        print(f"resumed from {path} at epoch {self.epoch}", flush=True)
 
     # -- policy math ----------------------------------------------------------------
 
@@ -228,7 +314,7 @@ class CommonAgent:
             actions = torch.where(rand_mask[:, None] > 0, sampled, mu)
             neglogp = self._neglogp(actions, mu, log_sigma)
 
-            env_state, rewards = self._env_step(env_state, actions)
+            env_state, rewards, infos = self._env_step(env_state, actions)
             dones = env_state.reset_buf.to(torch.float32)
             terminated = env_state.terminate_buf.to(torch.float32)
             self._update_game_meters(rewards, dones, env_state.aux.get("successes"))
@@ -240,7 +326,7 @@ class CommonAgent:
             rec = {"obs": obs, "actions": actions, "mu": mu, "sigma": log_sigma,
                    "neglogp": neglogp, "values": value, "rewards": rewards[:, None],
                    "dones": dones, "next_values": next_value, "rand_action_mask": rand_mask}
-            rec = self._record_step(env_state, roll, rec)
+            rec = self._record_step(env_state, roll, rec, infos)
             for k, v in rec.items():
                 if k not in batch:
                     batch[k] = v.new_empty((T,) + tuple(v.shape))
@@ -430,24 +516,49 @@ class CommonAgent:
                            "metrics": dict(zip(names, values))}
 
     def train(self, max_epochs: Optional[int] = None, env_state=None,
-              on_epoch: Optional[Callable[[dict], None]] = None):
-        """Train ``max_epochs`` epochs (the config's ``max_epochs`` by
-        default), printing an ``epoch N fps:...`` line per epoch and calling
+              on_epoch: Optional[Callable[[dict], None]] = None, writer=None,
+              restore_path: Optional[str] = None):
+        """Train until epoch ``max_epochs`` (the config's ``max_epochs`` by
+        default), printing an ``epoch N fps:...`` line per epoch, writing
+        ``train/<metric>`` and ``performance/total_fps`` scalars at the frame
+        count to ``writer`` if given, saving checkpoints, and calling
         ``on_epoch(record)`` after each. Sets up the train and env states
-        unless ``env_state`` is given. Writes no checkpoint. Returns the env
-        state and the last record."""
+        unless ``env_state`` is given; ``restore_path`` resumes from a
+        checkpoint first (the env starts fresh). Returns the env state and
+        the last record."""
         max_epochs = max_epochs or self.max_epochs
         print(f"training {type(self).__name__} for {max_epochs} epochs on {self.device}: "
-              f"{self.num_actors} envs x {self.horizon_length} steps; no checkpoint is "
-              f"written (saving is not ported yet)", flush=True)
+              f"{self.num_actors} envs x {self.horizon_length} steps; checkpoints under "
+              f"{self.output_dir}", flush=True)
         if env_state is None:
             env_state = self.setup_training()
+        if restore_path:
+            self.resume(restore_path)
+        name = self.config.get("name", "Humanoid")
+
+        def path(suffix=""):
+            return os.path.join(self.output_dir, f"{name}{suffix}.ckpt")
+
         start, record = time.time(), None
         while self.epoch < max_epochs:
             env_state, record = self.train_epoch(env_state)
-            msg = " ".join(f"{k}:{v:.4f}" for k, v in record["metrics"].items())
-            print(f"epoch {record['epoch']} fps:{record['env_steps_per_s']:.0f} {msg}", flush=True)
+            epoch, m = record["epoch"], record["metrics"]
+            msg = " ".join(f"{k}:{v:.4f}" for k, v in m.items())
+            print(f"epoch {epoch} fps:{record['env_steps_per_s']:.0f} {msg}", flush=True)
+            if writer is not None:
+                for k, v in m.items():
+                    writer.add_scalar(f"train/{k}", v, self.frame)
+                writer.add_scalar("performance/total_fps", record["env_steps_per_s"], self.frame)
+            if self.save_frequency > 0 and (epoch + 1) % self.save_frequency == 0:
+                self.save(path())
+                if self._save_intermediate:
+                    self.save(path(f"_{epoch + 1:08d}"), exclude=())
+            if (epoch >= self.save_best_after and m["games_played"] > 0
+                    and m["game_reward_mean"] > self._best_mean_rewards):
+                self._best_mean_rewards = m["game_reward_mean"]
+                self.save(path("_best"))
             if on_epoch is not None:
                 on_epoch(record)
-        print(f"training done in {time.time() - start:.1f}s", flush=True)
+        saved = self.save(path())
+        print(f"training done in {time.time() - start:.1f}s; saved {saved}", flush=True)
         return env_state, record

@@ -1,6 +1,6 @@
 """Policy / value / discriminator / encoder networks as ``nn.Module``s
-(port of the ``MLP``, ``AMPNetwork``, ``StyleNet`` and ``ASENetwork`` of
-``ase_tpu/models/networks.py``).
+(port of the ``MLP``, ``AMPNetwork``, ``StyleNet``, ``ASENetwork`` and
+``HRLNetwork`` of ``ase_tpu/models/networks.py``).
 
 Layer widths, activations, heads and initialisation are the reference's:
 every ``Linear`` weight U(+-1/sqrt(fan_in)) (torch's default weight init)
@@ -11,7 +11,9 @@ AMP: separate actor/critic MLPs on the observation plus the discriminator.
 ASE: the actor is a style net (latent -> 512 -> 256 -> tanh style vector)
 concatenated with the observation into the main MLP; the critic sees
 obs + latent; the encoder shares the discriminator trunk and L2-normalizes
-its head. Trained weights come from ``learning.checkpoint.load_ase``.
+its head. HRL: separate actor/critic MLPs on the task observation, whose
+action is a latent of the low-level controller. Trained weights come from
+``learning.checkpoint``.
 """
 
 from __future__ import annotations
@@ -124,14 +126,38 @@ class ASENetwork(nn.Module):
         return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-8)
 
 
-def _checked(params):
-    """The network block and the widths both builders take; refuses
+class HRLNetwork(nn.Module):
+    """High-level controller: actor and critic over the task observation;
+    the action is a latent of the low-level controller."""
+
+    def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int],
+                 sigma_init_val: float = -2.3, gen: torch.Generator = None):
+        super().__init__()
+        self.actor_mlp = MLP(obs_dim, units, gen)
+        self.critic_mlp = MLP(obs_dim, units, gen)
+        self.mu = _linear(units[-1], actions_num, gen)
+        self.value = _linear(units[-1], 1, gen)
+        self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
+
+    def eval_actor(self, obs) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu = self.mu(self.actor_mlp(obs))
+        return mu, self.sigma.expand(mu.shape)
+
+    def eval_critic(self, obs) -> torch.Tensor:
+        return self.value(self.critic_mlp(obs))
+
+
+def _checked(params, disc: bool = True):
+    """The network block and the widths the builders take; refuses
     mixed precision."""
     net = params["network"]
     if params.get("config", {}).get("mixed_precision", False):
         raise NotImplementedError("mixed_precision (bf16 matmuls) is not ported yet")
-    return net, dict(units=tuple(net["mlp"]["units"]), disc_units=tuple(net["disc"]["units"]),
-                     sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]))
+    kw = dict(units=tuple(net["mlp"]["units"]),
+              sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]))
+    if disc:
+        kw["disc_units"] = tuple(net["disc"]["units"])
+    return net, kw
 
 
 def _init_gen(params) -> torch.Generator:
@@ -156,6 +182,24 @@ def build_ase_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int,
         raise NotImplementedError("a separate encoder MLP is not ported yet")
     return ASENetwork(obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
                       latent_dim=latent_dim, gen=_init_gen(params), **kw)
+
+
+def build_hrl_network(params, obs_dim: int, act_dim: int) -> HRLNetwork:
+    """HRLNetwork from a cfg_train ``params`` block, initialised on the CPU."""
+    _, kw = _checked(params, disc=False)
+    return HRLNetwork(obs_dim=obs_dim, actions_num=act_dim, gen=_init_gen(params), **kw)
+
+
+def build_network(name: str, params, obs_dim: int, act_dim: int, amp_obs_dim: int = 0,
+                  latent_dim: int = 0) -> nn.Module:
+    """Network registry keyed by the cfg_train ``network.name`` field."""
+    if name == "amp":
+        return build_amp_network(params, obs_dim, act_dim, amp_obs_dim)
+    if name == "ase":
+        return build_ase_network(params, obs_dim, act_dim, amp_obs_dim, latent_dim)
+    if name == "hrl":
+        return build_hrl_network(params, obs_dim, act_dim)
+    raise ValueError(f"unknown network {name}")
 
 
 def sample_latents(gen: torch.Generator, n: int, latent_dim: int, device) -> torch.Tensor:

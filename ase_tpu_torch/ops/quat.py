@@ -154,6 +154,11 @@ def calc_heading(q):
     return torch.atan2(rot_dir[..., 1], rot_dir[..., 0])
 
 
+def calc_heading_quat(q):
+    """Rotation about z by the heading of q."""
+    return quat_from_angle_axis(calc_heading(q), _unit_axis(q, 2))
+
+
 def calc_heading_quat_inv(q):
     """Rotation about z that undoes the heading of q."""
     return quat_from_angle_axis(-calc_heading(q), _unit_axis(q, 2))

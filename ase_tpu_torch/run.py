@@ -1,6 +1,8 @@
 """CLI entry point (port of ``ase_tpu/run.py``).
 
-Trains an AMP or ASE agent on the card:
+Trains an AMP or ASE agent on the card, writing checkpoints
+(``{name}.ckpt.npz``, ``name`` from the train config) under
+``--output_path`` and TensorBoard scalars under ``--logdir``:
 
   python -m ase_tpu_torch.run --task HumanoidAMPGetup \\
       --cfg_env humanoid_ase_sword_shield_getup.yaml \\
@@ -8,31 +10,39 @@ Trains an AMP or ASE agent on the card:
       --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \\
       --max_iterations 2
 
-or, with ``--test``, plays a shipped checkpoint:
+``--resume 1 --checkpoint output/Humanoid.ckpt.npz`` continues such a run
+(or one of ``ase_tpu``'s) at its epoch. With ``--test`` it plays a
+checkpoint instead, e.g. the shipped heading controller over the shipped
+low-level controller:
 
-  python -m ase_tpu_torch.run --test --task HumanoidAMPGetup \\
-      --cfg_env humanoid_ase_sword_shield_getup.yaml \\
-      --cfg_train train/rlg/ase_humanoid.yaml \\
+  python -m ase_tpu_torch.run --test --task HumanoidHeading \\
+      --cfg_env humanoid_sword_shield_heading.yaml \\
+      --cfg_train train/rlg/hrl_humanoid.yaml \\
       --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \\
-      --checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz
+      --llc_checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz \\
+      --checkpoint data/models/ase_hlc_heading_reallusion_sword_shield.ckpt.npz
 
-Training writes no checkpoint yet: saving and ``--resume`` come with a later
-slice, as do ``--multi_gpu`` / ``--horovod``; those flags raise. Without a
-card the command raises unless ``--device cpu`` is given.
+Training the HRL agent, ``--multi_gpu`` / ``--horovod`` and ``--save_video``
+are not ported yet and raise. Without a card the command raises unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 
-def _algos():
+def build_alg_runner():
+    """The algo and player registries."""
     from ase_tpu_torch.learning.amp_agent import AMPAgent
     from ase_tpu_torch.learning.ase_agent import ASEAgent
+    from ase_tpu_torch.learning.hrl_agent import HRLAgent
+    from ase_tpu_torch.learning.players import PLAYER_REGISTRY
 
-    return {"amp": AMPAgent, "ase": ASEAgent}
+    return {"amp": AMPAgent, "ase": ASEAgent, "hrl": HRLAgent}, PLAYER_REGISTRY
 
 
 def build_agent(argv=None):
@@ -42,13 +52,12 @@ def build_agent(argv=None):
     from ase_tpu_torch.utils import config as cfg_util
 
     args = cfg_util.get_args(argv)
-    if not args.test:
-        if args.resume:
-            raise NotImplementedError("--resume: checkpoint save and resume are not ported yet "
-                                      "(ROADMAP.md, queue 1: checkpoint save/resume)")
-        if args.multi_gpu or args.horovod:
-            raise NotImplementedError("--multi_gpu / --horovod: multi-GPU training is not "
-                                      "ported yet (ROADMAP.md, queue 1: multi-GPU)")
+    if not args.test and (args.multi_gpu or args.horovod):
+        raise NotImplementedError("--multi_gpu / --horovod: multi-GPU training is not "
+                                  "ported yet (ROADMAP.md, queue 1: multi-GPU)")
+    if args.save_video:
+        raise NotImplementedError("--save_video: the viz tools are not ported yet "
+                                  "(ROADMAP.md, queue 1: motion tooling)")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -58,27 +67,38 @@ def build_agent(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     cfg, cfg_train = cfg_util.load_cfg(args)
     algo = cfg_train["params"]["algo"]["name"]
-    algos = _algos()
+    algos, _ = build_alg_runner()
     if algo not in algos:
         raise NotImplementedError(f"algo {algo!r} is not ported yet")
+    if algo == "hrl" and not args.test:
+        raise NotImplementedError("training the HRL agent is not ported yet (ROADMAP.md, "
+                                  "queue 1: HRL training); --test plays it")
     env = parse_task(args.task, cfg, device=device)
-    return algos[algo](env, cfg_train), args, cfg
+    return algos[algo](env, cfg_train, output_dir=args.output_path), args, cfg
 
 
 def build_player(argv=None):
     """Parse ``argv`` (with ``--test``), build the env, agent and player,
     and restore the checkpoint. Returns (player, cfg)."""
-    from ase_tpu_torch.learning.players import PLAYER_REGISTRY
-
     agent, args, cfg = build_agent(argv)
     if not args.test:
         raise ValueError("build_player needs --test")
+    _, players = build_alg_runner()
     algo = agent.cfg_train["params"]["algo"]["name"]
-    if algo not in PLAYER_REGISTRY:
-        raise NotImplementedError(f"no player for algo {algo!r} yet")
-    player = PLAYER_REGISTRY[algo](agent)
+    player = players.get(algo, players["common"])(agent)
     player.restore(args.checkpoint)
     return player, cfg
+
+
+def make_writer(logdir: str):
+    """A TensorBoard ``SummaryWriter`` on ``logdir``, or None (with one
+    printed line) when ``tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard does not import: no summaries are written", flush=True)
+        return None
+    return SummaryWriter(logdir)
 
 
 def main(argv=None, num_steps: Optional[int] = None, max_chunks: int = 100):
@@ -89,8 +109,20 @@ def main(argv=None, num_steps: Optional[int] = None, max_chunks: int = 100):
         player, cfg = build_player(argv)
         return player.run(num_steps=num_steps or cfg["env"]["episodeLength"],
                           max_chunks=max_chunks)
-    agent, _, _ = build_agent(argv)
-    return agent.train()
+    agent, args, _ = build_agent(argv)
+    writer = None
+    if args.bench:    # training throughput only: no writer, no periodic saves
+        agent.save_frequency = 0
+    else:
+        writer = make_writer(args.logdir or os.path.join(args.output_path, "summaries"))
+    restore_path = None
+    if args.resume and args.checkpoint not in ("", "Base"):
+        restore_path = args.checkpoint
+    try:
+        return agent.train(writer=writer, restore_path=restore_path)
+    finally:
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """CLI flags + YAML config loading (port of ``ase_tpu/utils/config.py``).
 
-The flags of the player (``--test``) and of training; ``--resume``,
-``--multi_gpu`` and ``--horovod`` parse, and ``run.py`` refuses them until
-saving and multi-GPU are ported. ``--device`` replaces the reference's
-``--rl_device``: the port runs on ``cuda`` unless told otherwise.
+The flags of the player (``--test``) and of training, with the
+reference's names. ``--multi_gpu``, ``--horovod`` and ``--save_video``
+parse, and ``run.py`` refuses them until multi-GPU and the viz tools are
+ported. ``--device`` replaces the reference's ``--rl_device``: the port
+runs on ``cuda`` unless told otherwise.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def get_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="ase_tpu_torch runner")
     p.add_argument("--test", action="store_true", help="Run trained policy, no training")
     p.add_argument("--play", action="store_true", help="Alias for --test")
-    p.add_argument("--resume", type=int, default=0, help="Resume training (not ported yet)")
+    p.add_argument("--resume", type=int, default=0,
+                   help="Resume training from --checkpoint (strict: the whole train state)")
     p.add_argument("--checkpoint", type=str, default="Base", help="Checkpoint path")
     p.add_argument("--headless", action="store_true", default=True)
     p.add_argument("--horovod", action="store_true", help="Multi-GPU (not ported yet)")
@@ -47,7 +49,17 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_iterations", type=int, default=0)
     p.add_argument("--horizon_length", type=int, default=-1)
     p.add_argument("--minibatch_size", type=int, default=-1)
+    p.add_argument("--llc_checkpoint", type=str, default="",
+                   help="Low-level controller checkpoint of an HRL agent")
+    p.add_argument("--output_path", type=str, default="output",
+                   help="Directory of the training checkpoints")
+    p.add_argument("--logdir", type=str, default="",
+                   help="TensorBoard dir (default <output_path>/summaries)")
     p.add_argument("--randomize", action="store_true", help="Domain randomization")
+    p.add_argument("--bench", action="store_true",
+                   help="Benchmark mode: no TensorBoard writer, no checkpoint saves")
+    p.add_argument("--save_video", type=str, default="",
+                   help="With --test: render env 0's rollout (not ported yet)")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device; the port runs on the card unless 'cpu' is given")
     args = p.parse_args(argv)
@@ -85,6 +97,8 @@ def load_cfg(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         train_cfg["horizon_length"] = args.horizon_length
     if args.minibatch_size > -1:
         train_cfg["minibatch_size"] = args.minibatch_size
+    if args.llc_checkpoint:
+        train_cfg["llc_checkpoint"] = args.llc_checkpoint
 
     seed = cfg_train["params"].get("seed", -1)
     if args.seed != -1:

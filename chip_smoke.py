@@ -35,7 +35,18 @@ Phases, each printed with its wall time against its budget:
 6. check   -- one engine tick on 8 of those envs, on the card (kernels) and
               on the CPU (plain versions), must agree within the tolerances
               of ``check_tick`` (shared with tests/test_torch_cuda.py).
-7. train   -- ``ase_tpu_torch.run``'s training branch with the shipped
+7. hrl     -- ``ase_tpu_torch.run``'s player on HumanoidHeading: the shipped
+              heading high-level controller (1024-512) over the shipped
+              low-level controller at 4096 envs, for one chunk of
+              HRL_DECISIONS decisions of 5 control steps each. The kernel
+              launch counters are zeroed just before and read just after:
+              exactly HRL_LAUNCHES of each (no reset steps the engine: the
+              heading task starts from the default pose). Env-steps/s, the
+              mean task reward, the mean windowed LLC discriminator reward
+              and the player's probe are printed. Then ``check_hrl``: one
+              decision's window on 64 of those envs, on the card and on the
+              CPU, from the same state and goal draws.
+8. train   -- ``ase_tpu_torch.run``'s training branch with the shipped
               ase_humanoid.yaml at its full widths and 4096 envs for
               TRAIN_EPOCHS epochs (only the epoch count is cut): per epoch
               the wall time with its rollout/update split, training
@@ -48,7 +59,14 @@ Phases, each printed with its wall time against its budget:
               batch and draws on the card and on the CPU, held against a
               float64 witness: losses, every gradient before the Adam step,
               the step itself and the new weights (shared with
-              tests/test_torch_cuda.py).
+              tests/test_torch_cuda.py). Then save and resume: the run's
+              final checkpoint (``Humanoid.ckpt.npz`` in a temporary
+              directory under chiprun_out/) goes into a new agent built by
+              ``run.build_agent`` with ``--resume 1 --checkpoint <it>
+              --max_iterations 3``; its weights, Adam moments and steps,
+              three normalizers and epoch must be bit-equal to the saved
+              agent's; it trains epoch 3 (TRAIN_LAUNCHES launches each), and
+              the directory is deleted.
 
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
@@ -62,6 +80,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 16
@@ -69,9 +88,24 @@ FALL_LAUNCHES = 150 * 2          # fall-state drop: 150 ticks x 2 substeps
 TOTAL_BUDGET_S = 570
 TRAIN_EPOCHS = 2
 TRAIN_LAUNCHES = 32 * 2 * 2      # per epoch: horizon 32 x 2 ticks x 2 substeps
+HRL_DECISIONS = 16
+HRL_LAUNCHES = HRL_DECISIONS * 5 * 2 * 2   # decisions x llc_steps x 2 ticks x 2 substeps
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
-            "check": 60, "train": 200}
+            "check": 60, "hrl": 240, "hrl_check": 120, "train": 300}
 REPO = os.path.dirname(os.path.abspath(__file__))
+DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
+HRL_ARGV = [
+    "--test", "--task", "HumanoidHeading",
+    "--cfg_env", "humanoid_sword_shield_heading.yaml",
+    "--cfg_train", "train/rlg/hrl_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--llc_checkpoint", "data/models/ase_llc_reallusion_sword_shield.ckpt.npz",
+    "--checkpoint", "data/models/ase_hlc_heading_reallusion_sword_shield.ckpt.npz",
+    "--seed", "0",
+]
+HRL_CHECK_ENVS = 64
+HRL_MU_RTOL = 1e-4               # window card vs CPU: the HLC's mu and the first LLC actions,
+HRL_OBS_RTOL = 1e-3              # ... the first step's observations and rewards, of their scale
 PLAYER_ARGV = [
     "--test", "--task", "HumanoidAMPGetup",
     "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
@@ -464,6 +498,156 @@ def check_phase(player):
                env._pd_action_offset[None] + env._pd_action_scale[None] * act)
 
 
+def hrl_phase(card):
+    """The HRL player at 4096 envs for HRL_DECISIONS decisions; returns the
+    launch counts of the run and the player."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    t0 = time.time()
+    player, _ = run.build_player(HRL_ARGV + ["--num_envs", "4096"])
+    agent, env = player.agent, player.env
+    player.debug_probes = True
+    widths = {"hlc": [l.out_features for l in agent.network.actor_mlp.layers],
+              "llc": [l.out_features for l in agent._llc_network.actor_mlp.layers],
+              "obs": agent.obs_dim, "latent": agent.action_dim, "llc_steps": agent._llc_steps,
+              "envs": env.num_envs}
+    want = {"hlc": [1024, 512], "llc": [1024, 1024, 512], "obs": 258, "latent": 64,
+            "llc_steps": 5, "envs": 4096}
+    if widths != want:
+        raise Failed(f"hrl phase not at the shipped widths: {widths}")
+    state = env.initial_state()
+    torch.cuda.synchronize()
+    print(f"hrl setup: {time.time() - t0:.1f} s (LLC and HLC restore, motion library, initial "
+          f"reset); widths {widths}", flush=True)
+
+    window = []
+    env_step = agent._env_step
+
+    def record(env_state, actions):
+        out = env_step(env_state, actions)
+        window.append(torch.stack([out[1].mean(), out[2]["disc_rewards"].mean()]))
+        return out
+
+    agent._env_step = record
+    chol.reset_launches()
+    t0 = time.time()
+    stats = player.run(num_steps=HRL_DECISIONS, max_chunks=1, env_state=state)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(chol.LAUNCHES)
+    agent._env_step = env_step
+    print(f"hrl player stats: {stats}")
+    print(f"launches on the hrl path: {launches}", flush=True)
+    for k in ("chol_forward2", "back_solve"):
+        if launches[k] != HRL_LAUNCHES:
+            raise Failed(f"{k} launched {launches[k]} times on the hrl path, want {HRL_LAUNCHES} "
+                         f"({HRL_DECISIONS} decisions x 5 LLC steps x 2 ticks x 2 substeps)")
+    if launches["chol_forward"] != 0:
+        raise Failed(f"chol_forward launched {launches['chol_forward']} times on the hrl path")
+    es = player.env_state
+    for what, t in (("obs", es.obs), ("actions", player.last_actions),
+                    ("rewards", player.last_rewards)):
+        if not bool(torch.isfinite(t).all()):
+            raise Failed(f"hrl: non-finite {what}")
+    if tuple(es.obs.shape) != (4096, 258) or tuple(player.last_actions.shape) != (4096, 64):
+        raise Failed(f"hrl: unexpected shapes {tuple(es.obs.shape)}, "
+                     f"{tuple(player.last_actions.shape)}")
+    task_r, disc_r = torch.stack(window).mean(0).tolist()
+    steps = HRL_DECISIONS * agent._llc_steps
+    print(f"hrl: {env.num_envs * steps / dt:.1f} env-steps/s ({HRL_DECISIONS / dt:.2f} decisions/s) "
+          f"over {HRL_DECISIONS} decisions x {agent._llc_steps} control steps x {env.num_envs} envs "
+          f"({dt:.2f} s); mean task reward {task_r:.4f}, mean windowed LLC disc reward "
+          f"{disc_r:.4f}, llc_disc_reward probe (env 0) {stats['llc_disc_reward']:.4f} ({card})",
+          flush=True)
+    return launches, player
+
+
+def _env_state_to(state, idx, device):
+    """Rows ``idx`` of an env state, on ``device``."""
+    from ase_tpu_torch.envs.humanoid import take
+
+    sub = take(state, idx)
+    return sub.replace(phys=type(sub.phys)(*(x.to(device) for x in sub.phys)),
+                       aux={k: v.to(device) for k, v in sub.aux.items()},
+                       **{k: v.to(device) for k, v in vars(sub).items() if k not in ("phys", "aux")})
+
+
+def check_hrl(player, device="cuda"):
+    """One decision's window (the HLC's mu, then 5 LLC steps) on
+    HRL_CHECK_ENVS of the HRL player's envs, copied from the card, on the
+    card and on the CPU with the same goal draws and a float32 contact
+    solve on both sides (as ``check_tick``; with the default bf16 Delassus
+    product the first step's observations differed by 9.6e-4 of scale,
+    card vs CPU, on an H100): the HLC's mu
+    and the first LLC step's actions agree to HRL_MU_RTOL of their scale,
+    that step's observations and rewards to HRL_OBS_RTOL; the later steps
+    of the window must be finite (contact dynamics amplify rounding from
+    step to step). Returns the errors."""
+    import torch
+    from ase_tpu_torch import run
+
+    n = HRL_CHECK_ENVS
+    idx = torch.arange(n, device=player.env.device)
+    goals, out = None, {}
+    for dev in dict.fromkeys((device, "cpu")):
+        p, _ = run.build_player(HRL_ARGV + ["--num_envs", str(n), "--device", dev])
+        agent, env = p.agent, p.env
+        env.sim_cfg = env.sim_cfg._replace(solver=env.sim_cfg.solver._replace(matvec_bf16=False))
+        if goals is None:
+            goals = _goal_draws(env, torch.Generator().manual_seed(0), n)
+        draws = iter([{k: v.to(dev) for k, v in d.items()} for d in goals])
+        env._draw_goal = lambda m: next(draws)
+        state = _env_state_to(player.env_state, idx, dev)
+        steps = []
+        env_step = env.step
+
+        def record(s, a):
+            o = env_step(s, a)
+            steps.append((a, o))
+            return o
+
+        env.step = record
+        with torch.no_grad():
+            mu, _ = agent._actor_sigma(agent.obs_rms.normalize(state.obs), {})
+            _, rew, infos = agent._env_step(state, mu)
+        out[dev] = {"mu": mu, "actions": steps[0][0], "obs": steps[0][1].obs,
+                    "rew": steps[0][1].rew,
+                    "later": [torch.cat([o.obs, o.rew[:, None]], 1) for _, o in steps[1:]]
+                    + [rew[:, None], infos["disc_rewards"]]}
+    errs = {}
+    for k, rtol in (("mu", HRL_MU_RTOL), ("actions", HRL_MU_RTOL), ("obs", HRL_OBS_RTOL),
+                    ("rew", HRL_OBS_RTOL)):
+        a, b = out[device][k].cpu(), out["cpu"][k]
+        scale = max(1.0, float(b.abs().max()))
+        errs[k] = float((a - b).abs().max()) / scale
+        print(f"  hrl window check {k}: {errs[k]:.3g} of scale (tol {rtol})")
+        if not errs[k] <= rtol:
+            raise Failed(f"hrl window: card and CPU disagree on {k}: {errs[k]:.3g} of scale")
+    for dev, o in out.items():
+        if not all(bool(torch.isfinite(t).all()) for t in o["later"]):
+            raise Failed(f"hrl window on {dev}: non-finite observations or rewards after step 1")
+    return errs
+
+
+def _goal_draws(env, gen, n):
+    """One heading-goal draw per LLC step of a window, from ``gen`` (CPU)."""
+    import math
+
+    import torch
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen)
+
+    return [{"goal_theta": u(-math.pi, math.pi), "goal_face_theta": u(-math.pi, math.pi),
+             "goal_speed": u(env._tar_speed_min, env._tar_speed_max),
+             "goal_change_steps": torch.randint(env._heading_change_steps_min,
+                                                env._heading_change_steps_max, (n,),
+                                                generator=gen)}
+            for _ in range(5)]
+
+
 def _train_widths(agent):
     """The shipped config's full widths, as the train phase must run them."""
     net = agent.network
@@ -487,13 +671,46 @@ def _train_widths(agent):
 
 
 def train_phase(card, rows):
-    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, then
-    ``check_minibatch`` on the trained agent. Returns the epoch records."""
+    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, the
+    resume of its checkpoint and one more epoch, then ``check_minibatch``
+    on the first agent. Returns the epoch records."""
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="smoke_train_", dir=os.path.join(REPO, "chiprun_out"))
+    try:
+        return _train(card, rows, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _check_resumed(saved, resumed):
+    """Raise Failed unless ``resumed`` holds ``saved``'s weights, Adam
+    moments and steps, normalizers and epoch, bit for bit."""
+    import torch
+
+    names = [n for n, _ in saved.network.named_parameters()]
+    for name, p, q in zip(names, saved.network.parameters(), resumed.network.parameters()):
+        sp, sq = saved.optimizer.state[p], resumed.optimizer.state[q]
+        same = (torch.equal(p, q) and torch.equal(sp["exp_avg"], sq["exp_avg"])
+                and torch.equal(sp["exp_avg_sq"], sq["exp_avg_sq"])
+                and float(sp["step"]) == float(sq["step"]))
+        if not same:
+            raise Failed(f"resume: {name} or its Adam state differs from the saved agent's")
+    for rms in ("obs_rms", "value_rms", "amp_rms"):
+        for f in ("mean", "var", "count"):
+            if not torch.equal(getattr(getattr(saved, rms), f), getattr(getattr(resumed, rms), f)):
+                raise Failed(f"resume: {rms}.{f} differs from the saved agent's")
+    if resumed.epoch != saved.epoch or resumed.frame != saved.frame:
+        raise Failed(f"resume: epoch {resumed.epoch}, frame {resumed.frame}; saved "
+                     f"{saved.epoch}, {saved.frame}")
+
+
+def _train(card, rows, out_dir):
     import torch
     from ase_tpu_torch import run
     from ase_tpu_torch.ops import chol
 
-    agent, _, _ = run.build_agent(TRAIN_ARGV)
+    argv = TRAIN_ARGV + ["--output_path", out_dir]
+    agent, _, _ = run.build_agent(argv)
     t0 = time.time()
     env_state = agent.setup_training()
     torch.cuda.synchronize()
@@ -526,6 +743,28 @@ def train_phase(card, rows):
     env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
     if len(records) != TRAIN_EPOCHS:
         raise Failed(f"trained {len(records)} epochs, want {TRAIN_EPOCHS}")
+
+    # save and resume: the run's final checkpoint into a new agent
+    saved = os.path.join(out_dir, "Humanoid.ckpt.npz")
+    t0 = time.time()
+    resumed, _, _ = run.build_agent(argv + ["--resume", "1", "--checkpoint", saved,
+                                            "--max_iterations", str(TRAIN_EPOCHS + 1)])
+    resumed.env._fall_states = agent.env._fall_states   # env construction, not train state
+    env_resumed = resumed.setup_training()
+    resumed.resume(saved)
+    _check_resumed(agent, resumed)
+    torch.cuda.synchronize()
+    print(f"resume: {os.path.getsize(saved) / 2 ** 20:.1f} MiB checkpoint; new agent built, set "
+          f"up and restored in {time.time() - t0:.1f} s; weights, Adam moments and steps, "
+          f"normalizers and epoch bit-equal to the saved agent's", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    chol.reset_launches()
+    env_resumed, _ = resumed.train(env_state=env_resumed, on_epoch=on_epoch)
+    if len(records) != TRAIN_EPOCHS + 1 or records[-1]["epoch"] != TRAIN_EPOCHS:
+        raise Failed(f"the resumed agent trained epochs {[r['epoch'] for r in records]}")
+    if not bool(torch.isfinite(env_resumed.obs).all()):
+        raise Failed("non-finite observations after the resumed epoch")
+    del resumed, env_resumed
     for rec in records:
         bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
         if bad:
@@ -731,6 +970,10 @@ def main():
     phase("check", lambda: check_phase(player), t_start)
     del player
     torch.cuda.empty_cache()
+    hrl_launches, hrl_player = phase("hrl", lambda: hrl_phase(card), t_start)
+    phase("hrl_check", lambda: check_hrl(hrl_player), t_start)
+    del hrl_player
+    torch.cuda.empty_cache()
     records = phase("train", lambda: train_phase(card, rows), t_start)
     signal.alarm(0)
     train_launches = {k: sum(r["launches"][k] for r in records)
@@ -741,7 +984,8 @@ def main():
     # chol_forward (one right-hand side) is public API the engine does not call
     kernels = [dict(name=k, route="cuda", source="ase_tpu_torch/csrc/chol.cu",
                     replaces=replaces[k], launches=launches[k],
-                    train_launches=train_launches[k], on_path=k != "chol_forward", **rows[k])
+                    train_launches=train_launches[k], hrl_launches=hrl_launches[k],
+                    on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

@@ -56,8 +56,8 @@ def rng():
 
 @pytest.mark.parametrize("name", [
     "quat_mul", "quat_rotate", "quat_conjugate", "quat_to_rotation_matrix",
-    "quat_to_tan_norm", "calc_heading_quat_inv", "quat_to_exp_map", "slerp",
-    "quat_integrate", "quat_integrate_local",
+    "quat_to_tan_norm", "calc_heading_quat", "calc_heading_quat_inv", "quat_to_exp_map",
+    "slerp", "quat_integrate", "quat_integrate_local",
 ])
 def test_quat_functions_match(rng, name):
     n = 64
@@ -67,7 +67,8 @@ def test_quat_functions_match(rng, name):
     args = {
         "quat_mul": (a, b), "quat_rotate": (a, v), "quat_conjugate": (a,),
         "quat_to_rotation_matrix": (a,), "quat_to_tan_norm": (a,),
-        "calc_heading_quat_inv": (a,), "quat_to_exp_map": (a,), "slerp": (a, b, t),
+        "calc_heading_quat": (a,), "calc_heading_quat_inv": (a,), "quat_to_exp_map": (a,),
+        "slerp": (a, b, t),
         "quat_integrate": (a, v, 1 / 120), "quat_integrate_local": (a, v, 1 / 120),
     }[name]
     ja = getattr(jq, name)(*(jnp.asarray(x) if isinstance(x, np.ndarray) else x for x in args))

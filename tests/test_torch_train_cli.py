@@ -1,7 +1,8 @@
 """The port's training entry point on the CPU: ``python -m
 ase_tpu_torch.run`` without ``--test`` trains (here an AMP agent on
 HumanoidAMP, as tests/test_learning.py::test_amp_agent_trains does for the
-reference), and refuses what it has not ported yet."""
+reference), writes its checkpoint, resumes from it, and refuses what it
+has not ported yet."""
 
 import copy
 
@@ -25,12 +26,11 @@ def _argv(tmp_path, algo="amp", **config):
     path.write_text(yaml.safe_dump(cfg))
     return ["--task", "HumanoidAMP", "--cfg_env", "humanoid_sword_shield.yaml",
             "--cfg_train", str(path), "--motion_file", CLIP, "--num_envs", "4",
-            "--max_iterations", "2", "--seed", "3"]
+            "--max_iterations", "2", "--seed", "3", "--output_path", str(tmp_path / "out")]
 
 
-def test_amp_agent_trains_through_the_cli(tmp_path, capsys):
-    """Two AMP epochs through run.main on the CPU: finite losses and
-    weights, a filled demo buffer, and the epoch lines."""
+def _run_keep_agent(argv):
+    """run.main(argv), and the agent it built."""
     seen = []
     build = run.build_agent
 
@@ -41,10 +41,17 @@ def test_amp_agent_trains_through_the_cli(tmp_path, capsys):
 
     run.build_agent = keep
     try:
-        env_state, record = run.main(_argv(tmp_path) + ["--device", "cpu"])
+        env_state, record = run.main(argv)
     finally:
         run.build_agent = build
-    agent = seen[0]
+    return seen[0], env_state, record
+
+
+def test_amp_agent_trains_through_the_cli(tmp_path, capsys):
+    """Two AMP epochs through run.main on the CPU: finite losses and
+    weights, a filled demo buffer, the epoch lines and the final
+    checkpoint under --output_path."""
+    agent, env_state, record = _run_keep_agent(_argv(tmp_path) + ["--device", "cpu"])
     assert type(agent).__name__ == "AMPAgent" and agent.epoch == 2
     for k in ("a_loss", "c_loss", "disc_loss", "kl", "disc_reward_mean"):
         assert np.isfinite(record["metrics"][k]), k
@@ -53,14 +60,37 @@ def test_amp_agent_trains_through_the_cli(tmp_path, capsys):
     assert int(agent.replay_buffer.total_count) == 2 * 16     # two epochs of 4 x 4 rows
     assert bool(torch.isfinite(env_state.obs).all())
     out = capsys.readouterr().out
-    assert "no checkpoint is written" in out and "epoch 1 fps:" in out
+    assert "epoch 1 fps:" in out
+    saved = np.load(tmp_path / "out" / "test.ckpt.npz")
+    assert int(saved[".epoch"]) == 2 and ".params['params']['mu']['kernel']" in saved.files
+    assert (tmp_path / "out" / "summaries").is_dir()
+
+
+def test_cli_resumes_a_run(tmp_path, capsys):
+    """--resume 1 --checkpoint <the run's checkpoint> --max_iterations 3
+    takes the whole train state back and trains epoch 2 only."""
+    first, _, _ = _run_keep_agent(_argv(tmp_path) + ["--device", "cpu"])
+    path = str(tmp_path / "out" / "test.ckpt.npz")
+    argv = _argv(tmp_path) + ["--device", "cpu", "--resume", "1", "--checkpoint", path,
+                              "--max_iterations", "3", "--bench"]
+    capsys.readouterr()
+    agent, _, record = _run_keep_agent(argv)
+    out = capsys.readouterr().out
+    assert f"resumed from {path} at epoch 2" in out
+    assert "epoch 2 fps:" in out and "epoch 1 fps:" not in out
+    assert agent.epoch == 3 and record["epoch"] == 2
+    assert int(agent.replay_buffer.total_count) == 16     # the buffers are not checkpointed
+    assert int(np.load(path)[".epoch"]) == 3              # --bench: no writer, the final save
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     argv = _argv(tmp_path)
-    for flag in (["--resume", "1"], ["--multi_gpu"], ["--horovod"]):
+    for flag in (["--multi_gpu"], ["--horovod"], ["--save_video", "x.mp4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.build_agent(argv + flag + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="HRL training"):
+        run.build_agent(argv[:4] + ["--cfg_train", "train/rlg/hrl_humanoid.yaml"]
+                        + argv[6:] + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="mixed_precision"):
         run.build_agent(_argv(tmp_path, mixed_precision=True) + ["--device", "cpu"])
     if not torch.cuda.is_available():     # the card is the default device

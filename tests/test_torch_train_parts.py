@@ -330,7 +330,7 @@ def test_demo_fetch_matches_reference():
 
 # -- networks and weights -------------------------------------------------------------
 
-@pytest.mark.parametrize("algo", ["amp", "ase"])
+@pytest.mark.parametrize("algo", ["amp", "ase", "hrl"])
 def test_network_initialisation_matches_reference_distribution(algo):
     """Random streams differ, so the distributions are compared: every bias
     0, every weight within its bound (1/sqrt(fan_in); 1.0 for the logit
@@ -341,12 +341,14 @@ def test_network_initialisation_matches_reference_distribution(algo):
 
     _, cfg_train = jcfg.load_cfg(jcfg.get_args([
         "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
-        "--cfg_train", "train/rlg/ase_humanoid.yaml"]))
+        "--cfg_train", f"train/rlg/{'hrl' if algo == 'hrl' else 'ase'}_humanoid.yaml"]))
     params = dict(cfg_train["params"], seed=11)
     if algo == "amp":
         net = tnets.build_amp_network(params, 253, 31, 1400)
-    else:
+    elif algo == "ase":
         net = tnets.build_ase_network(params, 253, 31, 1400, 64)
+    else:
+        net = tnets.build_network("hrl", params, 258, 64)
     special = {"disc_logits": 1.0, "enc_head": 0.1, "style_net.out": 1.0}
     n_checked = 0
     for name, mod in net.named_modules():
@@ -360,8 +362,9 @@ def test_network_initialisation_matches_reference_distribution(algo):
         want = bound / np.sqrt(3.0)
         assert abs(float(w.std()) - want) <= 0.1 * want, (name, float(w.std()), want)
         n_checked += 1
-    assert n_checked == (12 if algo == "amp" else 16)
-    np.testing.assert_array_equal(t2n(net.sigma), np.full(31, -2.9, np.float32))
+    assert n_checked == {"amp": 12, "ase": 16, "hrl": 6}[algo]
+    sigma = (64, -2.3) if algo == "hrl" else (31, -2.9)
+    np.testing.assert_array_equal(t2n(net.sigma), np.full(sigma[0], sigma[1], np.float32))
     assert net.sigma.requires_grad
 
 
