@@ -1,7 +1,7 @@
 """Environment layer: batched humanoid tasks (port of ``ase_tpu/envs``).
 
-The registry holds every task of the reference; the strike, perturb and
-view-motion tasks raise until their ROADMAP item lands.
+The registry holds every task of the reference; the view-motion task
+raises until torque control, which it forces, is ported.
 """
 
 from ase_tpu_torch.envs.humanoid import EnvState, Humanoid
@@ -10,7 +10,9 @@ from ase_tpu_torch.envs.humanoid_amp_getup import HumanoidAMPGetup
 from ase_tpu_torch.envs.humanoid_amp_task import HumanoidAMPTask
 from ase_tpu_torch.envs.humanoid_heading import HumanoidHeading
 from ase_tpu_torch.envs.humanoid_location import HumanoidLocation
+from ase_tpu_torch.envs.humanoid_perturb import HumanoidPerturb
 from ase_tpu_torch.envs.humanoid_reach import HumanoidReach
+from ase_tpu_torch.envs.humanoid_strike import HumanoidStrike
 
 
 def _not_ported(name: str, item: str):
@@ -20,9 +22,7 @@ def _not_ported(name: str, item: str):
     return type(name, (), {"__init__": init})
 
 
-HumanoidStrike = _not_ported("HumanoidStrike", "HRL training, props and the strike task")
-HumanoidPerturb = _not_ported("HumanoidPerturb", "perturb and view_motion")
-HumanoidViewMotion = _not_ported("HumanoidViewMotion", "perturb and view_motion")
+HumanoidViewMotion = _not_ported("HumanoidViewMotion", "torque control, which view_motion forces")
 
 TASK_REGISTRY = {
     "Humanoid": Humanoid,

@@ -107,7 +107,7 @@ class Humanoid:
         self.asset_file = env_cfg["asset"]["assetFileName"]
         path = mjcf.find_asset(env_cfg["asset"]["assetRoot"], self.asset_file)
         plane = env_cfg.get("plane", {})
-        model = mjcf.load_mjcf(path, device=self.device)
+        model = self._build_model(path)
         self.model = model.replace(plane_friction=torch.tensor(
             float(plane.get("staticFriction", 1.0)), device=self.device))
 
@@ -146,6 +146,11 @@ class Humanoid:
         self._initial_root_pos = torch.tensor([0.0, 0.0, 0.89], device=self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(cfg.get("seed", 0)))
+
+    def _build_model(self, asset_path: str):
+        """The physics model: the asset's articulation (tasks with props
+        append them here)."""
+        return mjcf.load_mjcf(asset_path, device=self.device)
 
     # -- sizes ----------------------------------------------------------------
 

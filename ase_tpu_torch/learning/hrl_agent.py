@@ -1,16 +1,24 @@
 """HRLAgent: a high-level controller driving a frozen, pretrained ASE
-low-level controller through its latent space (port of the serving half of
+low-level controller through its latent space (port of
 ``ase_tpu/learning/hrl_agent.py``).
 
 The high-level action is a ``latent_dim`` vector. One high-level step runs
 ``llc_steps`` control steps, each acting on the low-level actor's mean for
 the normalized latent, clipped to [-1, 1]; the task rewards and the
 low-level discriminator's rewards are averaged over the window, and done
-and terminate are ORed over it. The low-level controller (its ASE network,
-observation normalizer and AMP normalizer) comes from ``llc_checkpoint``
-through ``checkpoint.restore_subtree``; its widths from ``llc_config``.
-Training the high-level controller is not ported yet (``run.py`` refuses
-it); the player plays it.
+and terminate are ORed over it. Training records the window's
+discriminator rewards and learns from ``task_reward_w`` x task +
+``disc_reward_w`` x discriminator reward (0.9 / 0.1 in the shipped config).
+
+The low-level controller (its ASE network, observation normalizer and AMP
+normalizer) comes from ``llc_checkpoint`` through
+``checkpoint.restore_subtree``; its widths from ``llc_config``. It is
+frozen: no gradient reaches it and the optimizer does not hold it, so the
+train state and its checkpoints are the high-level controller's alone, and
+a resumed run reloads the LLC from ``llc_checkpoint``. The HLC's ``sigma``
+is trained like every other weight, as the reference's optimizer trains
+every leaf of its ``HRLNetwork`` (it does not read the config's
+``learn_sigma: false`` either).
 """
 
 from __future__ import annotations
@@ -82,6 +90,17 @@ class HRLAgent(CommonAgent):
 
     def _critic(self, obs_n, roll):
         return self.network.eval_critic(obs_n)
+
+    # -- training: the window's rewards ------------------------------------------------
+
+    def _record_step(self, env_state, roll, rec, infos):
+        rec["disc_rewards"] = infos["disc_rewards"]
+        return rec
+
+    def _process_rewards(self, batch):
+        batch["rewards"] = (self._task_reward_w * batch["rewards"]
+                            + self._disc_reward_w * batch["disc_rewards"])
+        return batch
 
     # -- the low-level controller ----------------------------------------------------
 

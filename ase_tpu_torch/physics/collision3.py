@@ -343,15 +343,22 @@ def _point_box(c, half):
 
 
 def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
-                   body_pos: torch.Tensor, max_contacts: int,
+                   body_pos: torch.Tensor, prop_quat: torch.Tensor,
+                   prop_pos: torch.Tensor, max_contacts: int,
                    margin: float = 0.0) -> Contacts:
     """Contacts (B, K) for bodies at (body_quat (B, nb, 4), body_pos
-    (B, nb, 3)) -- ``collision3.detect_batched`` (``collision3.py:304``)
-    without props, per-body friction or actor-scale randomization."""
+    (B, nb, 3)) and free props at (prop_quat (B, np, 4), prop_pos
+    (B, np, 3)) -- ``collision3.detect_batched`` (``collision3.py:304``)
+    without per-body friction or actor-scale randomization. A prop's geoms
+    hang off body nb + k, so the geom gather runs over the bodies and
+    props concatenated."""
     D = consts
     G = D.groups
     B = body_pos.shape[0]
     gb = D.gb
+    if prop_pos.shape[1]:
+        body_quat = torch.cat([body_quat, prop_quat], dim=1)
+        body_pos = torch.cat([body_pos, prop_pos], dim=1)
 
     qg = body_quat[:, gb]                                  # (B, ng, 4)
     Rb = _quat_mat_comps(qg.unbind(-1))

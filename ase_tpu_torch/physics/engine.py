@@ -9,9 +9,16 @@ forward substitution (``ops.chol.chol_forward``, a CUDA kernel on the card),
 the block-Jacobi contact solve on A = Z^T Z, ONE backward substitution
 (``ops.chol.back_solve``), and semi-implicit integration.
 
+Free props (the strike target, the perturb projectiles) are solved in
+closed form beside the articulation: each is a rigid body with 6 velocity
+dofs after the articulation's in ``u``, its free step (gravity and the
+gyroscopic term) done explicitly, its inverse mass in the contact solve
+through ``W_prop``. They add no row to the Cholesky kernels' systems.
+
 Left out of the port, as the reference keeps them only for A/B work: the
 AoS debug branches, the ``ASE_TPU_*_AOS`` / ``ASE_TPU_COLLISION_PER_SUBSTEP``
-switches, the PGS path, props and domain randomization.
+switches and the PGS path; and domain randomization with its restitution
+target, which the envs refuse.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ase_tpu_torch.ops import chol
+from ase_tpu_torch.ops import chol, linalg3
 from ase_tpu_torch.ops import quat as rot
 from ase_tpu_torch.physics import collision3, dynamics, dynamics2, solver2
 from ase_tpu_torch.physics import model as M
@@ -55,8 +62,6 @@ class Tables:
     dof gather tables and the implicit-damping diagonal."""
 
     def __init__(self, model: M.Model, cfg: SimConfig):
-        if model.num_props:
-            raise NotImplementedError("props are not ported yet")
         self.soa = collision3.build_soa_tables(model, cfg.enable_self_collision)
         self.detect = collision3.DetectConsts(model, self.soa, model.device)
         self.dyn = dynamics2.DynStatic(model)
@@ -72,10 +77,33 @@ class Tables:
             dtype=torch.long, device=model.device)
 
 
+def _clamp_w(model: M.Model, w: torch.Tensor) -> torch.Tensor:
+    """Angular velocities scaled down to at most ``max_ang_vel``."""
+    wn = torch.linalg.norm(w, dim=-1, keepdim=True) + 1e-9
+    return w * torch.clamp(model.max_ang_vel / wn, max=1.0)
+
+
+def _free_props(model: M.Model, states: State, h: float):
+    """The props' free step: gravity on the linear velocity and the
+    gyroscopic term, implicitly damped, on the angular one
+    (``engine.py:229-248``). Returns (u_free_prop (B, 6 np), I_w (B, np,
+    3, 3) world inertias)."""
+    Bn, P = states.u.shape[0], model.num_props
+    blk = states.u[:, model.nu:].reshape(Bn, P, 6)
+    R = rot.quat_to_rotation_matrix(states.prop_quat)               # (B, np, 3, 3)
+    v = blk[..., 0:3] + h * model.gravity
+    I_w = torch.einsum("bpij,pjk,bplk->bpil", R, model.inertia[model.nb:], R)
+    w = blk[..., 3:6]
+    Iww = torch.einsum("bpij,bpj->bpi", I_w, w)
+    wdot = linalg3.solve3(I_w, -torch.linalg.cross(w, Iww, dim=-1))
+    w = (w + h * wdot) / (1.0 + h * model.ang_damping)
+    return torch.cat([v, w], dim=-1).reshape(Bn, -1), I_w
+
+
 def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
                      actions: torch.Tensor, kin: dynamics.Kin, contacts):
     h = cfg.dt / cfg.substeps
-    nu, rd = model.nu, model.root_dofs
+    nu, rd, P = model.nu, model.root_dofs, model.num_props
     Bn = actions.shape[0]
 
     M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(model, T.dyn, states, kin, T.diag)
@@ -84,10 +112,13 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
     tau = tau + dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
     tau_full = torch.zeros(Bn, nu, device=actions.device)
     tau_full[:, rd:] = tau
+    if P:
+        u_free_prop, I_w = _free_props(model, states, h)
 
     # Z-form: with Z = L^-1 J^T the Delassus operator is A = Z^T Z and the
     # free contact velocity is J u + h Z^T y0, y0 = L^-1 (tau - bias)
-    JT_bl = solver2.contact_jacobian_t_bl(model, contacts, Phi, T.Amask, states.root_pos)
+    JT_bl, JT_prop = solver2.contact_jacobian_t_bl(
+        model, contacts, Phi, T.Amask, states.root_pos, states.prop_pos)
     L_bl, Z, y0 = chol.chol_forward(M_bl, JT_bl, (tau_full - bias).T[:, None, :].contiguous())
     y0 = y0[:, 0, :]                                                # (nu, B)
 
@@ -100,19 +131,27 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
     u_art = states.u[:, :nu]
     v_art_cur = torch.einsum("vib,bv->bi", JT_bl, u_art)
     v0f = v_art_cur + h * torch.einsum("vib,vb->bi", Z, y0)
+    if P:
+        # the props' inverse mass on their Jacobian block: W = M_prop^-1 J_prop^T
+        Jp = JT_prop.reshape(Bn, P, 6, -1)
+        lin = Jp[:, :, 0:3] / model.mass[model.nb:, None, None]
+        ang = torch.einsum("bpij,bpjm->bpim", linalg3.inv3(I_w), Jp[:, :, 3:6])
+        W_prop = torch.cat([lin, ang], dim=2).reshape(Bn, 6 * P, -1)
+        A = A + torch.bmm(JT_prop.transpose(1, 2), W_prop).to(A.dtype)
+        v0f = v0f + torch.einsum("bvi,bv->bi", JT_prop, u_free_prop)
     lam_f = solver2.jacobi_lambda(contacts, A, v0f, h, cfg.solver)
 
     du_bl = (h * y0 + torch.einsum("vib,bi->vb", Z, lam_f))[:, None, :].contiguous()
     u_new = u_art + chol.back_solve(L_bl, du_bl)[:, 0, :].T
+    if P:
+        u_new = torch.cat([u_new, u_free_prop + torch.einsum("bvj,bj->bv", W_prop, lam_f)], 1)
     body_forces = solver2.body_forces_from_lambda(
         model, contacts, lam_f, h, contact_offset=cfg.solver.contact_offset)
 
     u_new = u_new.clone()
     u_new[:, rd:nu] = torch.clamp(u_new[:, rd:nu], -cfg.max_dof_vel, cfg.max_dof_vel)
     if rd == 6:
-        w = u_new[:, 3:6]
-        wn = torch.linalg.norm(w, dim=-1, keepdim=True) + 1e-9
-        u_new[:, 3:6] = w * torch.clamp(model.max_ang_vel / wn, max=1.0)
+        u_new[:, 3:6] = _clamp_w(model, u_new[:, 3:6])
         root_pos = states.root_pos + h * u_new[:, 0:3]
         root_quat = rot.quat_integrate(states.root_quat, u_new[:, 3:6], h)
     else:
@@ -126,9 +165,16 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
     if len(T.hinge_dofs):
         hinge_q = states.hinge_q + h * u_new[:, T.hinge_dofs]
 
+    prop_pos, prop_quat = states.prop_pos, states.prop_quat
+    if P:
+        blk = u_new[:, nu:].reshape(Bn, P, 6)
+        wp = _clamp_w(model, blk[..., 3:6])
+        u_new[:, nu:] = torch.cat([blk[..., 0:3], wp], dim=-1).reshape(Bn, -1)
+        prop_pos = prop_pos + h * blk[..., 0:3]
+        prop_quat = rot.quat_integrate(prop_quat, wp, h)
+
     new_states = State(root_pos=root_pos, root_quat=root_quat, joint_q=joint_q,
-                       hinge_q=hinge_q, u=u_new, prop_pos=states.prop_pos,
-                       prop_quat=states.prop_quat)
+                       hinge_q=hinge_q, u=u_new, prop_pos=prop_pos, prop_quat=prop_quat)
     return new_states, body_forces, tau
 
 
@@ -138,8 +184,8 @@ def step_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
     optional FK of ``states`` (the previous tick's ``StepOut.kin``)."""
     kin = kin0 if kin0 is not None else dynamics2.fk_batched(model, T.dyn, states)
     contacts = collision3.detect_batched(
-        T.detect, kin.body_quat, kin.body_pos, cfg.max_contacts,
-        margin=cfg.solver.contact_offset)
+        T.detect, kin.body_quat, kin.body_pos, states.prop_quat, states.prop_pos,
+        cfg.max_contacts, margin=cfg.solver.contact_offset)
     forces = tau = None
     for _ in range(cfg.substeps):
         states, forces, tau = _substep_batched(model, cfg, T, states, actions, kin, contacts)

@@ -4,7 +4,7 @@ runs once at env construction).
 Parses the subset of MuJoCo XML the humanoid assets use: nested bodies with
 free/hinge joints, sphere/capsule/box/cylinder geoms with densities, default
 classes and motor actuators. Consecutive x,y,z hinges collapse into one
-spherical joint. Prop support (``add_props``) comes with the task slices.
+spherical joint. ``add_props`` appends free rigid props (``box_prop``).
 """
 
 from __future__ import annotations
@@ -338,6 +338,46 @@ def load_mjcf(path: str, device="cuda") -> M.Model:
         ang_damping=f32(0.01),
         max_ang_vel=f32(100.0),
     )
+
+
+def add_props(model: M.Model, props: List[dict]) -> M.Model:
+    """Append free rigid props (dicts with mass / com / inertia / geoms) to
+    a model. Prop k is body nb + k: it carries 6 velocity dofs after the
+    articulation's and its geoms reference body nb + k."""
+    if not props:
+        return model
+    nb = model.nb
+    geoms = [g for p in props for g in p["geoms"]]
+    body = [nb + k for k, p in enumerate(props) for _ in p["geoms"]]
+    dev = model.device
+
+    def cat(field, extra):
+        new = np.concatenate([model.np(field), np.asarray(extra, np.float64)])
+        return torch.as_tensor(new, dtype=torch.float32, device=dev)
+
+    return model.replace(
+        num_props=model.num_props + len(props),
+        mass=cat("mass", [p["mass"] for p in props]),
+        com=cat("com", [p["com"] for p in props]),
+        inertia=cat("inertia", [p["inertia"] for p in props]),
+        geom_types=model.geom_types + tuple(g["type"] for g in geoms),
+        geom_body=model.geom_body + tuple(body),
+        geom_pos=cat("geom_pos", [g["pos"] for g in geoms]),
+        geom_quat=cat("geom_quat", [g["quat"] for g in geoms]),
+        geom_size=cat("geom_size", [g["size"] for g in geoms]),
+        geom_friction=cat("geom_friction", [g["friction"] for g in geoms]),
+    )
+
+
+def box_prop(half_extents, density: float = 30.0, friction: float = 1.0) -> dict:
+    """A free box prop of the given half extents (the strike target, the
+    perturb projectiles)."""
+    half = np.asarray(half_extents, dtype=np.float64)
+    m, inertia = M.box_mass_inertia(half, density)
+    return {"mass": m, "com": np.zeros(3), "inertia": inertia,
+            "geoms": [{"type": M.GEOM_BOX, "pos": np.zeros(3),
+                       "quat": np.array([0.0, 0.0, 0.0, 1.0]), "size": half,
+                       "friction": friction}]}
 
 
 def find_asset(asset_root: str, asset_file: str) -> str:

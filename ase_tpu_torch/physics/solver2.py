@@ -4,7 +4,9 @@
 The transposed contact Jacobian is built in the batch-last (nu, 3K, B)
 layout the Cholesky kernel takes, its 3K columns grouped by contact-frame
 component [normals | t1 | t2]; per-contact 3x3 block quantities live in
-(B, K) component tensors. Props are not ported (the getup task has none).
+(B, K) component tensors. The free props' block ``JT_prop`` (B, 6 np, 3K)
+is built with ops over a props axis, so its launch count does not grow
+with the number of props.
 """
 
 from __future__ import annotations
@@ -43,8 +45,12 @@ def _active(contacts: Contacts, contact_offset: float) -> torch.Tensor:
 
 
 def contact_jacobian_t_bl(model: M.Model, contacts: Contacts, Phi: torch.Tensor,
-                          Amask: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
-    """JT (nu, 3K, B), batch-last, contiguous (``solver2.py:123``)."""
+                          Amask: torch.Tensor, origin: torch.Tensor,
+                          prop_pos: torch.Tensor):
+    """(JT (nu, 3K, B) batch-last and contiguous, JT_prop (B, 6 np, 3K) or
+    None without props) (``solver2.py:123``). The articulation block's
+    one-hot runs over the nb articulated bodies, so contacts on props add
+    nothing to it."""
     nb = model.nb
     n, t1, t2 = _basis_comps(contacts.normal)
     lever = tuple(contacts.pos[..., k] - origin[:, k:k + 1] for k in range(3))
@@ -64,7 +70,29 @@ def contact_jacobian_t_bl(model: M.Model, contacts: Contacts, Phi: torch.Tensor,
         )
         return mdiff * core
 
-    return torch.cat([art_block(n), art_block(t1), art_block(t2)], dim=1)
+    JT = torch.cat([art_block(n), art_block(t1), art_block(t2)], dim=1)
+    if model.num_props == 0:
+        return JT, None
+    return JT, _jacobian_t_prop(model, contacts, prop_pos, (n, t1, t2))
+
+
+def _jacobian_t_prop(model: M.Model, contacts: Contacts, prop_pos: torch.Tensor, basis):
+    """(B, 6 np, 3K): for prop p the rows [lin x, y, z | ang x, y, z], each
+    3K long in the [n | t1 | t2] column order, signed +1 where the prop is
+    body_a of a contact and -1 where it is body_b (``solver2.py:170-195``)."""
+    B, K = contacts.depth.shape
+    P = model.num_props
+    pid = model.nb + torch.arange(P, device=prop_pos.device)
+    sgn = ((contacts.body_a[..., None] == pid).to(torch.float32)
+           - (contacts.body_b[..., None] == pid).to(torch.float32))  # (B, K, P)
+    sgn = sgn.permute(0, 2, 1)[:, :, None, None, :]                  # (B, P, 1, 1, K)
+    bas = torch.stack([torch.stack(b, dim=-1) for b in basis], dim=1)   # (B, 3 basis, K, 3)
+    r = contacts.pos[:, None] - prop_pos[:, :, None]                 # (B, P, K, 3)
+    rxb = torch.stack(_cross(tuple(r[:, :, None, :, x] for x in range(3)),
+                             tuple(bas[:, None, :, :, x] for x in range(3))), dim=2)
+    lin = bas.permute(0, 3, 1, 2)[:, None]                           # (B, 1, 3 comp, 3 basis, K)
+    rows = torch.cat([lin.expand(B, P, 3, 3, K), rxb], dim=2) * sgn   # (B, P, 6, 3, K)
+    return rows.reshape(B, 6 * P, 3 * K)
 
 
 def _inv3_comps(D):

@@ -1,6 +1,6 @@
 """CLI entry point (port of ``ase_tpu/run.py``).
 
-Trains an AMP or ASE agent on the card, writing checkpoints
+Trains an AMP, ASE or HRL agent on the card, writing checkpoints
 (``{name}.ckpt.npz``, ``name`` from the train config) under
 ``--output_path`` and TensorBoard scalars under ``--logdir``:
 
@@ -22,9 +22,19 @@ low-level controller:
       --llc_checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz \\
       --checkpoint data/models/ase_hlc_heading_reallusion_sword_shield.ckpt.npz
 
-Training the HRL agent, ``--multi_gpu`` / ``--horovod`` and ``--save_video``
-are not ported yet and raise. Without a card the command raises unless
-``--device cpu`` is given.
+A high-level controller trains over the shipped low-level controller the
+same way, e.g. on the strike task (``--test --checkpoint
+data/models/ase_hlc_strike_reallusion_sword_shield.ckpt.npz`` plays the
+shipped one):
+
+  python -m ase_tpu_torch.run --task HumanoidStrike \
+      --cfg_env humanoid_sword_shield_strike.yaml \
+      --cfg_train train/rlg/hrl_humanoid.yaml \
+      --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \
+      --llc_checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz
+
+``--multi_gpu`` / ``--horovod`` and ``--save_video`` are not ported yet and
+raise. Without a card the command raises unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -70,9 +80,6 @@ def build_agent(argv=None):
     algos, _ = build_alg_runner()
     if algo not in algos:
         raise NotImplementedError(f"algo {algo!r} is not ported yet")
-    if algo == "hrl" and not args.test:
-        raise NotImplementedError("training the HRL agent is not ported yet (ROADMAP.md, "
-                                  "queue 1: HRL training); --test plays it")
     env = parse_task(args.task, cfg, device=device)
     return algos[algo](env, cfg_train, output_dir=args.output_path), args, cfg
 

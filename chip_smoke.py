@@ -40,7 +40,7 @@ Phases, each printed with its wall time against its budget:
               low-level controller at 4096 envs, for one chunk of
               HRL_DECISIONS decisions of 5 control steps each. The kernel
               launch counters are zeroed just before and read just after:
-              exactly HRL_LAUNCHES of each (no reset steps the engine: the
+              exactly HRL_DECISIONS x 20 of each (no reset steps the engine: the
               heading task starts from the default pose). Env-steps/s, the
               mean task reward, the mean windowed LLC discriminator reward
               and the player's probe are printed. Then ``check_hrl``: one
@@ -68,6 +68,36 @@ Phases, each printed with its wall time against its budget:
               agent's; it trains epoch 3 (TRAIN_LAUNCHES launches each), and
               the directory is deleted.
 
+9. strike  -- ``ase_tpu_torch.run``'s player on HumanoidStrike: the shipped
+              strike high-level controller over the shipped low-level
+              controller at 4096 envs (one free prop each, the target box),
+              one chunk of STRIKE_DECISIONS decisions, as the hrl phase;
+              exactly STRIKE_DECISIONS x 20 of each kernel (default-pose starts: no reset
+              steps the engine). Env-steps/s, decisions/s, the mean task
+              reward, the windowed LLC discriminator reward and the success
+              rates are printed.
+10. strike_profile -- one strike control step (a decision cut to one LLC
+              step) under torch.profiler: launches per control step and
+              device-busy share with a prop.
+11. strike_check -- ``check_tick`` on 8 of those envs (the box stands on
+              the plane, so prop contacts are always present).
+12. hrl_train -- ``ase_tpu_torch.run``'s training branch on HumanoidStrike
+              with the shipped hrl_humanoid.yaml at its widths (1024-512)
+              over the shipped LLC, 4096 envs, HRL_TRAIN_EPOCHS epoch (only
+              the epoch count is cut): exactly HRL_TRAIN_LAUNCHES of each
+              kernel, finite losses, every HLC weight changed, the LLC
+              bit-equal to its checkpoint, peak device memory; then the
+              final checkpoint resumed into a new agent (``run.build_agent
+              --resume 1``): HLC weights, Adam state, normalizers and epoch
+              bit-equal, and no further epoch.
+13. perturb -- ``ase_tpu_torch.run``'s ASE player with the shipped LLC on
+              HumanoidPerturb (13 box projectiles per env) at 4096 envs for
+              PERTURB_STEPS control steps (the first projectiles launch at
+              steps 60 and 67): exactly PERTURB_LAUNCHES of each kernel, and
+              the share of envs still above their termination heights.
+14. perturb_check -- ``check_tick`` on 8 envs with a projectile in flight
+              near the character or in contact.
+
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
 """
@@ -89,9 +119,15 @@ TOTAL_BUDGET_S = 570
 TRAIN_EPOCHS = 2
 TRAIN_LAUNCHES = 32 * 2 * 2      # per epoch: horizon 32 x 2 ticks x 2 substeps
 HRL_DECISIONS = 16
-HRL_LAUNCHES = HRL_DECISIONS * 5 * 2 * 2   # decisions x llc_steps x 2 ticks x 2 substeps
+STRIKE_DECISIONS = 16
+HRL_TRAIN_EPOCHS = 1
+HRL_TRAIN_LAUNCHES = 32 * 5 * 2 * 2                # per epoch: horizon 32 decisions of 5 steps
+PERTURB_STEPS = 72
+PERTURB_LAUNCHES = PERTURB_STEPS * 2 * 2
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
-            "check": 60, "hrl": 240, "hrl_check": 120, "train": 300}
+            "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "strike": 240,
+            "strike_profile": 60, "strike_check": 60, "hrl_train": 300, "perturb": 240,
+            "perturb_check": 60}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -102,6 +138,24 @@ HRL_ARGV = [
     "--llc_checkpoint", "data/models/ase_llc_reallusion_sword_shield.ckpt.npz",
     "--checkpoint", "data/models/ase_hlc_heading_reallusion_sword_shield.ckpt.npz",
     "--seed", "0",
+]
+LLC = "data/models/ase_llc_reallusion_sword_shield.ckpt.npz"
+STRIKE_HLC = "data/models/ase_hlc_strike_reallusion_sword_shield.ckpt.npz"
+STRIKE_ARGV = [
+    "--task", "HumanoidStrike",
+    "--cfg_env", "humanoid_sword_shield_strike.yaml",
+    "--cfg_train", "train/rlg/hrl_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--llc_checkpoint", LLC,
+    "--num_envs", "4096", "--seed", "0",
+]
+PERTURB_ARGV = [
+    "--test", "--task", "HumanoidPerturb",
+    "--cfg_env", "humanoid_ase_sword_shield.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--checkpoint", LLC,
+    "--num_envs", "4096", "--seed", "0",
 ]
 HRL_CHECK_ENVS = 64
 HRL_MU_RTOL = 1e-4               # window card vs CPU: the HLC's mu and the first LLC actions,
@@ -442,9 +496,9 @@ def profile_phase(player, card, steps=1):
         print("profile: not measured (the profiler recorded no device time)")
         return
     launches = sum(e.count for e in kernels)
-    print(f"profile over {steps} control steps ({card}): wall {wall_us / 1e3:.1f} ms, "
-          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
-          f"{launches / steps:.0f} kernel launches per control step")
+    print(f"profile of {type(player.env).__name__} over {steps} control steps ({card}): wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / wall_us:.1f}%), {launches / steps:.0f} kernel launches per control step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d}x  "
               f"{e.key[:90]}")
@@ -458,7 +512,8 @@ def profile_phase(player, card, steps=1):
 def check_tick(model, cfg, state, targets):
     """One engine tick from ``state`` on the card (kernels) and on the CPU
     (plain versions), float32 contact solve on both sides. Raises Failed
-    unless positions and rotations agree to TICK_POS_TOL and velocities to
+    unless positions and rotations (of the props too) agree to TICK_POS_TOL
+    and velocities to
     TICK_VEL_RTOL of their scale (the two devices sum float32 products in
     different orders), or unless the card tick skipped the kernels. Returns
     the max errors."""
@@ -478,9 +533,11 @@ def check_tick(model, cfg, state, targets):
             raise Failed(f"tick on {dev} launched chol_forward2 {launched} times")
     torch.cuda.synchronize()
     errs = {}
-    for name in ("root_pos", "root_quat", "joint_q", "hinge_q", "u"):
+    for name in ("root_pos", "root_quat", "joint_q", "hinge_q", "prop_pos", "prop_quat", "u"):
         a = getattr(out["cuda"], name).cpu()
         b = getattr(out["cpu"], name)
+        if not b.numel():      # no props
+            continue
         errs[name] = float((a - b).abs().max())
         tol = TICK_VEL_RTOL * max(1.0, float(b.abs().max())) if name == "u" else TICK_POS_TOL
         print(f"  tick check {name}: max abs err {errs[name]:.3g} (tol {tol:.3g})")
@@ -498,69 +555,72 @@ def check_phase(player):
                env._pd_action_offset[None] + env._pd_action_scale[None] * act)
 
 
-def hrl_phase(card):
-    """The HRL player at 4096 envs for HRL_DECISIONS decisions; returns the
-    launch counts of the run and the player."""
+def hrl_phase(card, argv, obs_dim, decisions, name):
+    """An HRL player (the heading or the strike controller over the shipped
+    LLC) at 4096 envs for ``decisions`` decisions; returns the launch
+    counts of the run and the player."""
     import torch
     from ase_tpu_torch import run
     from ase_tpu_torch.ops import chol
 
     t0 = time.time()
-    player, _ = run.build_player(HRL_ARGV + ["--num_envs", "4096"])
+    player, _ = run.build_player(argv)
     agent, env = player.agent, player.env
     player.debug_probes = True
     widths = {"hlc": [l.out_features for l in agent.network.actor_mlp.layers],
               "llc": [l.out_features for l in agent._llc_network.actor_mlp.layers],
               "obs": agent.obs_dim, "latent": agent.action_dim, "llc_steps": agent._llc_steps,
               "envs": env.num_envs}
-    want = {"hlc": [1024, 512], "llc": [1024, 1024, 512], "obs": 258, "latent": 64,
+    want = {"hlc": [1024, 512], "llc": [1024, 1024, 512], "obs": obs_dim, "latent": 64,
             "llc_steps": 5, "envs": 4096}
     if widths != want:
-        raise Failed(f"hrl phase not at the shipped widths: {widths}")
+        raise Failed(f"{name} phase not at the shipped widths: {widths}")
     state = env.initial_state()
     torch.cuda.synchronize()
-    print(f"hrl setup: {time.time() - t0:.1f} s (LLC and HLC restore, motion library, initial "
-          f"reset); widths {widths}", flush=True)
+    print(f"{name} setup: {time.time() - t0:.1f} s (LLC and HLC restore, motion library, "
+          f"initial reset); widths {widths}, {env.model.num_props} props", flush=True)
 
     window = []
     env_step = agent._env_step
 
     def record(env_state, actions):
         out = env_step(env_state, actions)
-        window.append(torch.stack([out[1].mean(), out[2]["disc_rewards"].mean()]))
+        succ = out[0].aux.get("successes", torch.zeros_like(out[1]))
+        window.append(torch.stack([out[1].mean(), out[2]["disc_rewards"].mean(), succ.mean()]))
         return out
 
     agent._env_step = record
     chol.reset_launches()
     t0 = time.time()
-    stats = player.run(num_steps=HRL_DECISIONS, max_chunks=1, env_state=state)
+    stats = player.run(num_steps=decisions, max_chunks=1, env_state=state)
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = dict(chol.LAUNCHES)
     agent._env_step = env_step
-    print(f"hrl player stats: {stats}")
-    print(f"launches on the hrl path: {launches}", flush=True)
-    for k in ("chol_forward2", "back_solve"):
-        if launches[k] != HRL_LAUNCHES:
-            raise Failed(f"{k} launched {launches[k]} times on the hrl path, want {HRL_LAUNCHES} "
-                         f"({HRL_DECISIONS} decisions x 5 LLC steps x 2 ticks x 2 substeps)")
-    if launches["chol_forward"] != 0:
-        raise Failed(f"chol_forward launched {launches['chol_forward']} times on the hrl path")
+    print(f"{name} player stats: {stats}")
+    print(f"launches on the {name} path: {launches}", flush=True)
+    n = decisions * 5 * 2 * 2
+    if launches != {"chol_forward2": n, "back_solve": n, "chol_forward": 0}:
+        raise Failed(f"{name} launches {launches}, want {n} of chol_forward2 and back_solve "
+                     f"({decisions} decisions x 5 LLC steps x 2 ticks x 2 substeps; no reset "
+                     "steps the engine) and no chol_forward")
     es = player.env_state
     for what, t in (("obs", es.obs), ("actions", player.last_actions),
-                    ("rewards", player.last_rewards)):
+                    ("rewards", player.last_rewards), ("props", es.phys.prop_pos)):
         if not bool(torch.isfinite(t).all()):
-            raise Failed(f"hrl: non-finite {what}")
-    if tuple(es.obs.shape) != (4096, 258) or tuple(player.last_actions.shape) != (4096, 64):
-        raise Failed(f"hrl: unexpected shapes {tuple(es.obs.shape)}, "
+            raise Failed(f"{name}: non-finite {what}")
+    if tuple(es.obs.shape) != (4096, obs_dim) or tuple(player.last_actions.shape) != (4096, 64):
+        raise Failed(f"{name}: unexpected shapes {tuple(es.obs.shape)}, "
                      f"{tuple(player.last_actions.shape)}")
-    task_r, disc_r = torch.stack(window).mean(0).tolist()
-    steps = HRL_DECISIONS * agent._llc_steps
-    print(f"hrl: {env.num_envs * steps / dt:.1f} env-steps/s ({HRL_DECISIONS / dt:.2f} decisions/s) "
-          f"over {HRL_DECISIONS} decisions x {agent._llc_steps} control steps x {env.num_envs} envs "
+    task_r, disc_r, succ = torch.stack(window).mean(0).tolist()
+    steps = decisions * agent._llc_steps
+    print(f"{name}: {env.num_envs * steps / dt:.1f} env-steps/s ({decisions / dt:.2f} decisions/s) "
+          f"over {decisions} decisions x {agent._llc_steps} control steps x {env.num_envs} envs "
           f"({dt:.2f} s); mean task reward {task_r:.4f}, mean windowed LLC disc reward "
-          f"{disc_r:.4f}, llc_disc_reward probe (env 0) {stats['llc_disc_reward']:.4f} ({card})",
-          flush=True)
+          f"{disc_r:.4f}, llc_disc_reward probe (env 0) {stats['llc_disc_reward']:.4f}"
+          + (f"; successes at a window's end {succ:.4f} (mean over decisions), success rate "
+             f"of finished games {stats['success_rate']:.4f} over {stats['episodes']} games"
+             if "successes" in es.aux else "") + f" ({card})", flush=True)
     return launches, player
 
 
@@ -670,21 +730,28 @@ def _train_widths(agent):
     return got
 
 
-def train_phase(card, rows):
-    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, the
-    resume of its checkpoint and one more epoch, then ``check_minibatch``
-    on the first agent. Returns the epoch records."""
+def _in_temp_dir(prefix, fn):
+    """``fn(out_dir)`` with a fresh directory under chiprun_out/, deleted
+    afterwards."""
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    out_dir = tempfile.mkdtemp(prefix="smoke_train_", dir=os.path.join(REPO, "chiprun_out"))
+    out_dir = tempfile.mkdtemp(prefix=prefix, dir=os.path.join(REPO, "chiprun_out"))
     try:
-        return _train(card, rows, out_dir)
+        return fn(out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+def train_phase(card, rows):
+    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, the
+    resume of its checkpoint and one more epoch, then ``check_minibatch``
+    on the first agent. Returns the epoch records."""
+    return _in_temp_dir("smoke_train_", lambda out_dir: _train(card, rows, out_dir))
+
+
 def _check_resumed(saved, resumed):
     """Raise Failed unless ``resumed`` holds ``saved``'s weights, Adam
-    moments and steps, normalizers and epoch, bit for bit."""
+    moments and steps, normalizers (with the AMP one where the agent has
+    it) and epoch, bit for bit."""
     import torch
 
     names = [n for n, _ in saved.network.named_parameters()]
@@ -695,7 +762,7 @@ def _check_resumed(saved, resumed):
                 and float(sp["step"]) == float(sq["step"]))
         if not same:
             raise Failed(f"resume: {name} or its Adam state differs from the saved agent's")
-    for rms in ("obs_rms", "value_rms", "amp_rms"):
+    for rms in ("obs_rms", "value_rms", "amp_rms")[:3 if hasattr(saved, "amp_rms") else 2]:
         for f in ("mean", "var", "count"):
             if not torch.equal(getattr(getattr(saved, rms), f), getattr(getattr(resumed, rms), f)):
                 raise Failed(f"resume: {rms}.{f} differs from the saved agent's")
@@ -956,6 +1023,201 @@ def check_minibatch(agent, rows=256, seed=0, device="cuda"):
     return loss_err, grad_err[0], flips
 
 
+def _llc_matches_checkpoint(agent):
+    """Whether the HRL agent's LLC weights and normalizers equal its
+    checkpoint's, bit for bit."""
+    import numpy as np
+    from ase_tpu_torch.learning import checkpoint
+
+    saved = np.load(os.path.join(REPO, LLC))
+    leaves = checkpoint.network_leaves(agent._llc_network, ".params")
+    leaves.update(checkpoint.rms_leaves(agent._llc_obs_rms, ".obs_rms"))
+    leaves.update(checkpoint.rms_leaves(agent._llc_amp_rms, ".extra['amp_rms']"))
+    return all(np.array_equal(leaf.get(), saved[k]) for k, leaf in leaves.items())
+
+
+def strike_profile_phase(player, card):
+    """``profile_phase`` over one strike control step: a decision cut to
+    one LLC step (the HLC's forward, then one control step with the prop),
+    as tracing a whole decision's ~120k launches took 53 s."""
+    agent = player.agent
+    llc_steps, agent._llc_steps = agent._llc_steps, 1
+    try:
+        profile_phase(player, card)
+    finally:
+        agent._llc_steps = llc_steps
+
+
+def strike_check_phase(player):
+    """check_tick on 8 strike envs: their state after the run and the LLC's
+    actions for their last latent."""
+    import torch
+
+    env, agent = player.env, player.agent
+    st = type(player.env_state.phys)(*(x[:8] for x in player.env_state.phys))
+    with torch.no_grad():
+        act = agent._compute_llc_action(player.env_state.obs[:8], player.last_actions[:8])
+    contacts = (player.env_state.contact_forces[:8, env.model.nb].abs().sum(-1) > 0).sum()
+    print(f"  strike check: {int(contacts)} of 8 targets in contact after the run")
+    check_tick(env.model, env.sim_cfg, st,
+               env._pd_action_offset[None] + env._pd_action_scale[None] * act)
+
+
+def hrl_train_phase(card, rows):
+    """HRL_TRAIN_EPOCHS epochs of ``run.py``'s training branch on strike,
+    then the resume of its checkpoint into a new agent. Returns the epoch
+    records."""
+    return _in_temp_dir("smoke_hrl_", lambda out_dir: _hrl_train(card, rows, out_dir))
+
+
+def _hrl_train(card, rows, out_dir):
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    argv = STRIKE_ARGV + ["--max_iterations", str(HRL_TRAIN_EPOCHS), "--output_path", out_dir]
+    t0 = time.time()
+    agent, _, _ = run.build_agent(argv)
+    got = {"hlc": [l.out_features for l in agent.network.actor_mlp.layers],
+           "critic": [l.out_features for l in agent.network.critic_mlp.layers],
+           "obs": agent.obs_dim, "latent": agent.action_dim, "llc_steps": agent._llc_steps,
+           "minibatch": agent.minibatch_size, "mini_epochs": agent.mini_epochs,
+           "minibatches": agent.num_minibatches, "envs": agent.num_actors,
+           "horizon": agent.horizon_length}
+    want = {"hlc": [1024, 512], "critic": [1024, 512], "obs": 268, "latent": 64, "llc_steps": 5,
+            "minibatch": 16384, "mini_epochs": 6, "minibatches": 8, "envs": 4096, "horizon": 32}
+    if got != want:
+        raise Failed(f"hrl_train phase not at the shipped widths: {got}")
+    if not _llc_matches_checkpoint(agent):
+        raise Failed("hrl_train: the LLC differs from its checkpoint before training")
+    env_state = agent.setup_training()
+    torch.cuda.synchronize()
+    print(f"hrl_train setup: {time.time() - t0:.1f} s; widths {got}", flush=True)
+    before = [p.detach().clone() for p in agent.network.parameters()]
+    records = []
+
+    def on_epoch(rec):
+        rec["launches"] = dict(chol.LAUNCHES)
+        chol.reset_launches()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        m = rec["metrics"]
+        chol_ms = sum(n * rows[k]["cold_ms"] for k, n in rec["launches"].items())
+        print(f"hrl_train epoch {rec['epoch']}: wall {rec['wall_s']:.2f} s (rollout "
+              f"{rec['rollout_s']:.2f} s, update {rec['update_s']:.2f} s), "
+              f"{rec['env_steps_per_s']:.1f} decisions x envs/s, "
+              f"{agent._llc_steps * rec['env_steps_per_s']:.1f} env-steps/s; " + ", ".join(
+                  f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "b_loss", "kl", "reward_mean",
+                                               "disc_reward_mean", "game_reward_mean",
+                                               "consecutive_successes_mean"))
+              + f"; launches {rec['launches']}, Cholesky kernels ~{chol_ms:.1f} ms (launches x "
+              f"cold_ms); peak device memory {rec['peak_gib']:.2f} GiB ({card})", flush=True)
+        records.append(rec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chol.reset_launches()
+    env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
+    if len(records) != HRL_TRAIN_EPOCHS:
+        raise Failed(f"hrl_train: trained {len(records)} epochs, want {HRL_TRAIN_EPOCHS}")
+    for rec in records:
+        bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise Failed(f"hrl_train epoch {rec['epoch']}: non-finite metrics {bad}")
+        want = {"chol_forward2": HRL_TRAIN_LAUNCHES, "back_solve": HRL_TRAIN_LAUNCHES,
+                "chol_forward": 0}
+        if rec["launches"] != want:
+            raise Failed(f"hrl_train epoch {rec['epoch']}: launches {rec['launches']}, want {want}")
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(agent.network.parameters(), before))
+    if moved < len(before):
+        raise Failed(f"hrl_train changed {moved} of {len(before)} HLC weight tensors")
+    if not _llc_matches_checkpoint(agent):
+        raise Failed("hrl_train: the LLC changed during training")
+    if not bool(torch.isfinite(env_state.obs).all()):
+        raise Failed("hrl_train: non-finite observations after training")
+
+    saved = os.path.join(out_dir, "Humanoid.ckpt.npz")
+    t0 = time.time()
+    resumed, _, _ = run.build_agent(argv + ["--resume", "1", "--checkpoint", saved])
+    resumed.setup_training()
+    resumed.resume(saved)
+    _check_resumed(agent, resumed)
+    if not _llc_matches_checkpoint(resumed):
+        raise Failed("hrl_train: the resumed agent's LLC differs from its checkpoint")
+    torch.cuda.synchronize()
+    print(f"hrl_train resume: {os.path.getsize(saved) / 2 ** 20:.1f} MiB checkpoint (the HLC's "
+          f"train state; the LLC reloads from {LLC}); new agent built, set up and restored in "
+          f"{time.time() - t0:.1f} s; HLC weights, Adam moments and steps, normalizers and "
+          f"epoch bit-equal to the saved agent's", flush=True)
+    return records
+
+
+def perturb_phase(card):
+    """The ASE player with the shipped LLC on HumanoidPerturb at 4096 envs
+    for PERTURB_STEPS control steps; returns the launch counts and the
+    player."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    t0 = time.time()
+    player, _ = run.build_player(PERTURB_ARGV)
+    env = player.env
+    if (env.model.num_props, env.num_envs) != (13, 4096):
+        raise Failed(f"perturb: {env.model.num_props} props at {env.num_envs} envs")
+    state = env.initial_state()
+    torch.cuda.synchronize()
+    print(f"perturb setup: {time.time() - t0:.1f} s", flush=True)
+    chol.reset_launches()
+    t0 = time.time()
+    stats = player.run(num_steps=PERTURB_STEPS, max_chunks=1, env_state=state)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(chol.LAUNCHES)
+    print(f"perturb player stats: {stats}")
+    print(f"launches on the perturb path: {launches}", flush=True)
+    want = {"chol_forward2": PERTURB_LAUNCHES, "back_solve": PERTURB_LAUNCHES, "chol_forward": 0}
+    if launches != want:
+        raise Failed(f"perturb launches {launches}, want {want} ({PERTURB_STEPS} control steps "
+                     "x 2 ticks x 2 substeps)")
+    es = player.env_state
+    for what, t in (("obs", es.obs), ("actions", player.last_actions),
+                    ("projectiles", es.phys.prop_pos)):
+        if not bool(torch.isfinite(t).all()):
+            raise Failed(f"perturb: non-finite {what}")
+    nu = env.model.nu
+    speed = es.phys.u[:, nu:].reshape(4096, 13, 6)[..., 0:3].norm(dim=-1)
+    fallen = ((es.body_pos[..., 2] < env._termination_heights) & env._contact_mask).any(-1)
+    hit = (es.contact_forces[:, env.model.nb:env.model.nb + 2].abs().sum(-1) > 0).any(-1)
+    print(f"perturb: {env.num_envs * PERTURB_STEPS / dt:.1f} env-steps/s over {PERTURB_STEPS} "
+          f"control steps x {env.num_envs} envs ({dt:.2f} s); envs still above their "
+          f"termination heights {1 - float(fallen.float().mean()):.4f}; projectiles 0 and 1 "
+          f"launched: mean speed {float(speed[:, :2].mean()):.2f} m/s, in contact in "
+          f"{float(hit.float().mean()):.4f} of envs ({card})", flush=True)
+    return launches, player
+
+
+def perturb_check_phase(player):
+    """check_tick on 8 perturb envs whose first or second projectile is in
+    contact or within 2 m of the torso and moving."""
+    import torch
+
+    env, es = player.env, player.env_state
+    nb, nu = env.model.nb, env.model.nu
+    near = (es.phys.prop_pos[:, :2] - es.body_pos[:, 1:2]).norm(dim=-1) < 2.0
+    moving = es.phys.u[:, nu:nu + 12].reshape(-1, 2, 6)[..., 0:3].norm(dim=-1) > 0.5
+    touching = es.contact_forces[:, nb:nb + 2].abs().sum(-1) > 0
+    idx = torch.nonzero((touching | (near & moving)).any(-1))[:8, 0]
+    if idx.numel() < 8:
+        raise Failed(f"perturb check: only {idx.numel()} envs with a projectile in play")
+    print(f"  perturb check on envs {idx.tolist()}: "
+          f"{int(touching[idx].any(-1).sum())} with a projectile in contact")
+    st = type(es.phys)(*(x[idx] for x in es.phys))
+    act = player.last_actions[idx].clamp(-1, 1)
+    check_tick(env.model, env.sim_cfg, st,
+               env._pd_action_offset[None] + env._pd_action_scale[None] * act)
+
+
 def main():
     t_start = time.time()
     signal.signal(signal.SIGALRM, _timeout)
@@ -970,14 +1232,29 @@ def main():
     phase("check", lambda: check_phase(player), t_start)
     del player
     torch.cuda.empty_cache()
-    hrl_launches, hrl_player = phase("hrl", lambda: hrl_phase(card), t_start)
+    hrl_launches, hrl_player = phase("hrl", lambda: hrl_phase(
+        card, HRL_ARGV + ["--num_envs", "4096"], 258, HRL_DECISIONS, "hrl"), t_start)
     phase("hrl_check", lambda: check_hrl(hrl_player), t_start)
     del hrl_player
     torch.cuda.empty_cache()
     records = phase("train", lambda: train_phase(card, rows), t_start)
+    torch.cuda.empty_cache()
+    strike_launches, strike_player = phase("strike", lambda: hrl_phase(
+        card, STRIKE_ARGV + ["--test", "--checkpoint", STRIKE_HLC], 268, STRIKE_DECISIONS,
+        "strike"), t_start)
+    phase("strike_profile", lambda: strike_profile_phase(strike_player, card), t_start)
+    phase("strike_check", lambda: strike_check_phase(strike_player), t_start)
+    del strike_player
+    torch.cuda.empty_cache()
+    hrl_records = phase("hrl_train", lambda: hrl_train_phase(card, rows), t_start)
+    torch.cuda.empty_cache()
+    perturb_launches, perturb_player = phase("perturb", lambda: perturb_phase(card), t_start)
+    phase("perturb_check", lambda: perturb_check_phase(perturb_player), t_start)
+    del perturb_player
     signal.alarm(0)
-    train_launches = {k: sum(r["launches"][k] for r in records)
-                      for k in ("chol_forward2", "back_solve", "chol_forward")}
+    names = ("chol_forward2", "back_solve", "chol_forward")
+    train_launches = {k: sum(r["launches"][k] for r in records) for k in names}
+    hrl_train_launches = {k: sum(r["launches"][k] for r in hrl_records) for k in names}
     replaces = {"chol_forward2": "ase_tpu/ops/pallas_chol.py:122",
                 "back_solve": "ase_tpu/ops/pallas_chol.py:145",
                 "chol_forward": "ase_tpu/ops/pallas_chol.py:105"}
@@ -985,6 +1262,9 @@ def main():
     kernels = [dict(name=k, route="cuda", source="ase_tpu_torch/csrc/chol.cu",
                     replaces=replaces[k], launches=launches[k],
                     train_launches=train_launches[k], hrl_launches=hrl_launches[k],
+                    strike_launches=strike_launches[k],
+                    hrl_train_launches=hrl_train_launches[k],
+                    perturb_launches=perturb_launches[k],
                     on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")

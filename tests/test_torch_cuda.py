@@ -118,6 +118,56 @@ def test_engine_tick_on_the_card_matches_the_cpu(cuda):
                           st, act)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["strike", "perturb"])
+def test_prop_tick_on_the_card_matches_the_cpu(cuda, task):
+    """One engine tick at B = 8 with free props, card vs CPU through
+    ``chip_smoke.check_tick`` (props' poses held with the character's): the
+    strike target standing on the plane, its side 3 cm into the sword hand,
+    or a perturb projectile at 30 m/s 2 cm into the torso with a second one
+    resting against it (the other 11 parked), the character at rest in its
+    default pose with a random heading."""
+    import chip_smoke
+    from ase_tpu_torch.envs.humanoid_perturb import PERTURB_OBJS
+    from ase_tpu_torch.physics import dynamics, dynamics2, engine, mjcf
+    from ase_tpu_torch.physics.solver import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    if task == "strike":
+        props = [mjcf.box_prop([0.2, 0.2, 0.9], density=30.0)]
+    else:
+        props = [mjcf.box_prop([0.1] * 3, density=200.0) if k == "small"
+                 else mjcf.box_prop([0.25] * 3, density=100.0) for k, _ in PERTURB_OBJS]
+    model = mjcf.add_props(model, props)
+    cfg = engine.SimConfig(solver=SolverConfig(matvec_bf16=False))
+    rng = np.random.default_rng(1)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, 8).astype(np.float32))
+    zero = torch.zeros(8)
+    st = dynamics.default_state(model, 8)
+    st = st._replace(root_pos=st.root_pos + torch.tensor([0.0, 0.0, 0.9]),
+                     root_quat=torch.stack([zero, zero, torch.sin(yaw / 2), torch.cos(yaw / 2)], -1))
+    kin = dynamics2.fk_batched(model, engine.Tables(model, cfg).dyn, st)
+    ang = torch.as_tensor(rng.uniform(0, 2 * np.pi, 8).astype(np.float32))
+    out = torch.stack([torch.cos(ang), torch.sin(ang), zero], -1)
+    pos, u = st.prop_pos.clone(), st.u.clone()
+    if task == "strike":
+        pos[:, 0] = kin.body_pos[:, model.body_index("right_hand")] + out * 0.21
+        pos[:, 0, 2] = 0.895
+    else:
+        b = model.body_index("torso")
+        pos[:] = torch.tensor([[200.0 + i, 0.0, 1.0] for i in range(model.num_props)])
+        pos[:, 0] = kin.body_pos[:, b] + kin.body_R[:, b, :, 2] * 0.12 + out * 0.19
+        pos[:, 1] = pos[:, 0] + out * 0.19 + torch.tensor([0.0, 0.0, 0.05])
+        u[:, model.nu:model.nu + 3] = -30.0 * out
+        u[:, model.nu + 3:model.nu + 6] = torch.as_tensor(rng.normal(size=(8, 3)).astype(np.float32))
+    st = st._replace(prop_pos=pos, u=u)
+    act = torch.as_tensor(rng.uniform(-0.5, 0.5, (8, 31)).astype(np.float32))
+    errs = chip_smoke.check_tick(model, cfg, st, act)
+    assert set(errs) >= {"prop_pos", "prop_quat"}
+
+
 def _small_ase_agent(device):
     """An ASEAgent on 8 HumanoidAMPGetup envs with small widths (32-16,
     latent 8): the config of tests/test_learning.py's TRAIN_CFG."""

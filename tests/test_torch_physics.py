@@ -151,7 +151,8 @@ def test_contact_sets_match_reference(models, tables, seed):
     tk = td2.fk_batched(tmodel, tt.dyn, ts)
     jc = jc3.detect_batched(jmodel, jt.soa, jk.body_quat, jk.body_pos, js.prop_quat,
                             js.prop_pos, 24, margin=0.02)
-    tc = tc3.detect_batched(tt.detect, tk.body_quat, tk.body_pos, 24, margin=0.02)
+    tc = tc3.detect_batched(tt.detect, tk.body_quat, tk.body_pos, ts.prop_quat, ts.prop_pos, 24,
+                            margin=0.02)
     assert int((np.asarray(jc.depth) > 0).sum()) > B        # real contacts present
     assert int((np.asarray(jc.body_b) >= 0).sum() - (np.asarray(jc.depth) != 0).sum()) <= B * 24
     np.testing.assert_array_equal(tc.body_a.numpy(), np.asarray(jc.body_a))

@@ -14,6 +14,12 @@ give what the reference computes from it -- the goal update of
 ``pre_physics_step`` on the step schedule, the task observation, the
 reward, and a reset of a masked subset of envs -- all within 1e-5 of
 scale (float32 trigonometry in another order).
+
+The prop tasks the same way: HumanoidStrike (the target's placement from
+replayed draws through ``_draw_target``, its task obs, reward, successes
+and the target-contact termination) and HumanoidPerturb (a launch on its
+schedule from replayed ``_draw_perturb`` draws); their physics with props
+is held in tests/test_torch_props.py.
 """
 
 import copy
@@ -31,7 +37,8 @@ from ase_tpu.physics import dynamics as jd
 from ase_tpu.utils import paths as jpaths
 from ase_tpu_torch.envs import parse_task as tparse
 from tests.test_torch_env import f32_solver
-from tests.test_torch_train_parts import _one_torch_thread, t2n  # noqa: F401
+from ase_tpu_torch.ops import quat as trot
+from tests.test_torch_train_parts import _one_torch_thread, env_state_from_jax, t2n  # noqa: F401
 
 B = 8
 CLIP = "reallusion_sword_shield/RL_Avatar_Idle_Ready_Motion.npy"
@@ -198,9 +205,204 @@ def test_task_env_matches_reference(task):
 
 
 def test_tasks_without_a_port_raise():
-    """Strike, perturb and view-motion name their ROADMAP item."""
-    for task in ("HumanoidStrike", "HumanoidPerturb", "HumanoidViewMotion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tparse(task, task_cfg("HumanoidHeading"), device="cpu")
+    """View-motion, which forces torque control (``pdControl: false``),
+    names its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*torque control"):
+        tparse("HumanoidViewMotion", task_cfg("HumanoidHeading"), device="cpu")
     assert math.isclose(tparse("HumanoidHeading", task_cfg("HumanoidHeading"),
                                device="cpu").dt, 1 / 30)
+
+
+# -- the prop tasks: strike and perturb -------------------------------------------------
+
+PROP_TASKS = {"HumanoidStrike": "humanoid_sword_shield_strike.yaml",
+              "HumanoidPerturb": "humanoid_ase_sword_shield.yaml"}
+
+
+def prop_cfg(task, **env):
+    with open(jpaths.data_path("cfg", PROP_TASKS[task])) as f:
+        cfg = yaml.safe_load(f)
+    cfg["env"].update({"numEnvs": B, "resetChunk": 4, "motion_file": CLIP, **env})
+    cfg["task"] = {"randomize": False}
+    return cfg
+
+
+class PropDraws(TaskDraws):
+    """The JAX strike env's reset draws (``HumanoidAMP._reset_actors``'s
+    split, then the target placement's) and the JAX perturb env's per-step
+    launch draws, in the port's ``_draw_reset`` / ``_draw_target`` /
+    ``_draw_perturb`` formats."""
+
+    def reset(self, n):
+        self._split(2)
+        return self.target(n)
+
+    def target(self, n):
+        j = self.jenv
+        k = self._split(3)
+        near = jax.random.uniform(k[0], (n,)) < j._near_prob
+        dist_max = jnp.where(near, j._near_dist, j._tar_dist_max)
+        dist = (dist_max - j._tar_dist_min) * jax.random.uniform(k[1], (n,)) + j._tar_dist_min
+        k2a, k2b = jax.random.split(k[2])
+        return self._torch({"target_dist": dist,
+                            "target_theta": 2 * jnp.pi * jax.random.uniform(k2a, (n,)),
+                            "target_yaw": 2 * jnp.pi * jax.random.uniform(k2b, (n,))})
+
+    def perturb(self, n):
+        j = self.jenv
+        k = self._split(4)
+        k3a, k3b = jax.random.split(k[3])
+        return self._torch({
+            "theta": 2 * jnp.pi * jax.random.uniform(k[0], (n,)),
+            "dist": (j._proj_dist_max - j._proj_dist_min) * jax.random.uniform(k[1], (n,))
+            + j._proj_dist_min,
+            "height": (j._proj_h_max - j._proj_h_min) * jax.random.uniform(k[2], (n,))
+            + j._proj_h_min,
+            "aim_noise": jax.random.normal(k3a, (n, 3)),
+            "speed": (j._proj_speed_max - j._proj_speed_min) * jax.random.uniform(k3b, (n, 1))
+            + j._proj_speed_min})
+
+    @staticmethod
+    def _torch(d):
+        return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in d.items()}
+
+
+def _prop_envs(task, **env):
+    cfg = prop_cfg(task, **env)
+    jenv = jparse(task, copy.deepcopy(cfg))
+    tenv = tparse(task, copy.deepcopy(cfg), device="cpu")
+    f32_solver(jenv)
+    f32_solver(tenv)
+    return jenv, tenv, PropDraws(jenv)
+
+
+def _tilt(angle):
+    """(x, y, z, w) of a rotation by ``angle`` about x."""
+    return torch.tensor([math.sin(angle / 2), 0.0, 0.0, math.cos(angle / 2)])
+
+
+def test_strike_matches_reference():
+    """HumanoidStrike against ase_tpu's at B = 8 with a reset chunk of 4:
+    the initial reset's target placement from the replayed draws; then,
+    on the port's state after 8 settling steps with the target knocked
+    over in two envs, tilted in one and moving: the 15-dim task obs
+    (1e-5 of scale), the reward (1e-6; the success override where the
+    target's up axis is within cos 0.2 of horizontal), ``successes`` and
+    the resets of ``post_physics_step``; the target-contact termination on
+    crafted contact forces, exactly; and a reset of envs 1, 4 and 6 that
+    places their targets anew and leaves the others'."""
+    jenv, tenv, draws = _prop_envs("HumanoidStrike")
+    assert tenv.get_obs_size() == jenv.get_obs_size() == 253 + 15
+    assert tenv.model.num_props == jenv.model.num_props == 1
+    tenv._draw_reset = draws.reset
+
+    key = jax.random.PRNGKey(5)
+    js = jenv.initial_state(key)
+    draws.key = key
+    ts = tenv.initial_state()
+    assert draws.key.tolist() == js.rng.tolist()
+    for f in ("prop_pos", "prop_quat", "u"):
+        close(getattr(js.phys, f), getattr(ts.phys, f), 1e-6, f"initial {f}")
+    close(js.obs, ts.obs, 1e-5, "initial obs")
+    dist = np.linalg.norm(t2n(ts.phys.prop_pos[:, 0, :2] - ts.phys.root_pos[:, :2]), axis=-1)
+    assert ((dist >= 0.5) & (dist <= 10.0)).all() and np.allclose(t2n(ts.phys.prop_pos[:, 0, 2]), 0.9)
+
+    rng = np.random.default_rng(5)
+    for _ in range(8):
+        ts = tenv.reset_done(ts)
+        ts = tenv.step(ts, torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 31)).astype(np.float32)))
+    phys = ts.phys
+    quat, u = phys.prop_quat.clone(), phys.u.clone()
+    nu = tenv.model.nu
+    for e, angle in ((0, 1.5), (1, 2.0), (2, 0.6)):
+        quat[e, 0] = trot.quat_mul(_tilt(angle), quat[e, 0])
+    u[3, nu:nu + 6] = torch.tensor([0.5, -0.2, 0.1, 1.0, 0.3, -2.0])
+    root = ts.body_pos[:, 0, :]
+    toward = phys.prop_pos[:, 0, :] - root
+    toward[:, 2] = 0.0
+    prev = root - 0.03 * toward / toward.norm(dim=-1, keepdim=True)
+    ts = ts.replace(phys=phys._replace(prop_quat=quat, u=u),
+                    aux={**ts.aux, "prev_root_pos": prev})
+    jnow = to_jax(ts, js, draws.key)
+    close(jenv._compute_task_obs(jnow), tenv._compute_task_obs(ts), 1e-5, "task obs")
+    close(jenv._compute_reward(jnow), tenv._compute_reward(ts), 1e-6, "reward")
+    jpost, tpost = jenv.post_physics_step(jnow), tenv.post_physics_step(ts)
+    np.testing.assert_array_equal(t2n(tpost.aux["successes"]), np.asarray(jpost.aux["successes"]))
+    assert t2n(tpost.aux["successes"])[:3].tolist() == [1.0, 1.0, 0.0]
+    close(jpost.rew, tpost.rew, 1e-6, "post-step reward")
+    assert float(tpost.rew[0]) == float(tpost.rew[1]) == 1.0 and float(tpost.rew[3]) < 1.0
+    close(jpost.obs, tpost.obs, 1e-5, "post-step obs")
+    for f in ("reset_buf", "terminate_buf", "progress"):
+        np.testing.assert_array_equal(t2n(getattr(tpost, f)), np.asarray(getattr(jpost, f)), f)
+
+    # the target-contact failure: the target pushed sideways while a body
+    # other than the feet and the strike bodies touches something, after step 1
+    nb = tenv.model.nb
+    forces = torch.zeros_like(ts.contact_forces)
+    torso, sword, foot = (tenv.model.body_index(b) for b in ("torso", "sword", "left_foot"))
+    forces[2:6, nb, 0] = 5.0                      # target pushed: envs 2-5
+    forces[2, torso, 1] = -3.0                    # ... and the torso touches: fails
+    forces[3, sword, 0] = -5.0                    # ... only the sword: no failure
+    forces[4, foot, 2] = 500.0                    # ... only a foot: no failure
+    forces[5, torso, 2] = 8.0                     # ... at progress 1: no failure
+    forces[6, torso, 0] = 9.0                     # torso contact, target untouched
+    progress = torch.full_like(ts.progress, 5)
+    progress[5] = 1
+    upright = ts.replace(contact_forces=forces, progress=progress,
+                         body_pos=ts.body_pos + torch.tensor([0.0, 0.0, 2.0]))
+    jr, jt = jenv._compute_reset(to_jax(upright, js, draws.key))
+    tr, tt = tenv._compute_reset(upright)
+    np.testing.assert_array_equal(t2n(tr), np.asarray(jr))
+    np.testing.assert_array_equal(t2n(tt), np.asarray(jt))
+    assert t2n(tt)[2:7].tolist() == [1, 0, 0, 0, 0]
+
+    # a masked reset: envs 1, 4 and 6 get new targets, the rest keep theirs
+    flags = np.zeros(B, np.int32)
+    flags[[1, 4, 6]] = 1
+    ts = ts.replace(reset_buf=torch.as_tensor(flags))
+    jr = jax.jit(jenv.reset_done)(to_jax(ts, js, draws.key))
+    tr = tenv.reset_done(ts)
+    assert draws.key.tolist() == jr.rng.tolist()
+    for f in ("prop_pos", "prop_quat", "u"):
+        close(getattr(jr.phys, f), getattr(tr.phys, f), 1e-5, f"reset {f}")
+        keep = torch.as_tensor(flags == 0)
+        assert torch.equal(getattr(tr.phys, f)[keep], getattr(ts.phys, f)[keep]), f
+    close(jr.obs, tr.obs, 1e-5, "reset obs")
+
+
+def test_perturb_launch_matches_reference():
+    """HumanoidPerturb against ase_tpu's at B = 8: the parked projectiles
+    of the default pose (and, as the reference does, the reference-state
+    resets' projectiles at the default state's origin); then
+    ``post_physics_step`` at progress 59 (no launch) and 60 (the first
+    small projectile launches at the torso from 4-5 m at 30-40 m/s) from
+    the replayed per-step draws: prop poses and velocities within 1e-5 of
+    scale, the other projectiles untouched, no termination."""
+    jenv, tenv, draws = _prop_envs("HumanoidPerturb")
+    assert tenv.model.num_props == jenv.model.num_props == 13
+    tenv._draw_perturb = draws.perturb
+    jdef, tdef = jenv.default_phys_state(B), tenv.default_phys_state(B)
+    for f in jdef._fields:
+        np.testing.assert_array_equal(t2n(getattr(tdef, f)), np.asarray(getattr(jdef, f)), f)
+    assert t2n(tdef.prop_pos)[0, :, 0].tolist() == [200.0 + i for i in range(13)]
+
+    js = jenv.initial_state(jax.random.PRNGKey(6))
+    ts = env_state_from_jax(js, tenv.initial_state())
+    ts = ts.replace(progress=torch.full_like(ts.progress, 59))
+    draws.key = js.rng
+    jst = to_jax(ts, js, draws.key)
+    nu = tenv.model.nu
+    for step in (59, 60):
+        jst, ts = jenv.post_physics_step(jst), tenv.post_physics_step(ts)
+        assert draws.key.tolist() == jst.rng.tolist()
+        for f in ("prop_pos", "prop_quat", "u"):
+            close(getattr(jst.phys, f), getattr(ts.phys, f), 1e-5, f"step {step} {f}")
+        close(jst.obs, ts.obs, 1e-5, f"step {step} obs")
+        assert not bool(ts.reset_buf.any()) and not bool(ts.terminate_buf.any())
+    launched = ts.phys.u[:, nu:nu + 3].norm(dim=-1)
+    assert bool(((launched >= 29.0) & (launched <= 42.0)).all()), launched
+    offset = (ts.phys.prop_pos[:, 0, :2] - ts.body_pos[:, 0, :2]).norm(dim=-1)
+    assert bool(((offset >= 4.0) & (offset <= 5.0)).all())
+    before = env_state_from_jax(js, ts)
+    assert torch.equal(ts.phys.prop_pos[:, 1:], before.phys.prop_pos[:, 1:])
+    assert torch.equal(ts.phys.u[:, nu + 6:], before.phys.u[:, nu + 6:])

@@ -2,7 +2,7 @@
 ase_tpu_torch.run`` without ``--test`` trains (here an AMP agent on
 HumanoidAMP, as tests/test_learning.py::test_amp_agent_trains does for the
 reference), writes its checkpoint, resumes from it, and refuses what it
-has not ported yet."""
+has not ported yet (HRL training: tests/test_torch_hrl_train.py)."""
 
 import copy
 
@@ -88,9 +88,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     for flag in (["--multi_gpu"], ["--horovod"], ["--save_video", "x.mp4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.build_agent(argv + flag + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="HRL training"):
-        run.build_agent(argv[:4] + ["--cfg_train", "train/rlg/hrl_humanoid.yaml"]
-                        + argv[6:] + ["--device", "cpu"])
+    # an HRL agent trains over a low-level controller, which it must be given
+    with pytest.raises(ValueError, match="--llc_checkpoint"):
+        run.build_agent(["--task", "HumanoidStrike", "--cfg_env", "humanoid_sword_shield_strike.yaml",
+                         "--cfg_train", "train/rlg/hrl_humanoid.yaml"] + argv[6:] + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="mixed_precision"):
         run.build_agent(_argv(tmp_path, mixed_precision=True) + ["--device", "cpu"])
     if not torch.cuda.is_available():     # the card is the default device

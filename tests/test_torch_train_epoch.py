@@ -36,7 +36,8 @@ def _jax_epoch(jagent, ts, js):
     ts, metrics = jax.jit(jagent._update_phase_impl)(ts, dataset)
     metrics["reward_mean"] = batch["rewards"].mean()
     for k in ("disc_rewards", "enc_rewards"):
-        metrics[k[:-1] + "_mean"] = batch[k].mean()
+        if k in batch:
+            metrics[k[:-1] + "_mean"] = batch[k].mean()
     return ts, js, batch, jax.device_get(metrics)
 
 
