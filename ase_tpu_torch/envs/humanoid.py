@@ -4,11 +4,17 @@ Methods keep the reference's functional shape -- state in, state out -- so
 the port's tests hold each step against the JAX env. ``EnvState`` is a plain
 dataclass of per-env tensors (leading dim B) on the env's device. Random
 draws come from the env's ``torch.Generator`` through ``_draw_reset``, one
-call per reset pass, so a caller can substitute its own numbers.
+call per reset pass, and ``_draw_dr_noise``, so a caller can substitute its
+own numbers.
 
-Domain randomization and torque control are not ported: the env raises if
-``task.randomize`` is set or ``pdControl`` is off. Every shipped config runs
-PD control with randomization off.
+Domain randomization (``task.randomize`` with a ``randomization_params``
+block; ``envs/domain_rand.py``): a reset pass redraws the knobs of the envs
+it resets before their new states are built, a control step ticks the
+schedule, noises the actions and hands the knobs to the engine, and the
+observations get their noise after they are computed. The knob state lives
+in ``aux`` under ``dr_*`` keys, its 0-d ``dr_step_count`` beside the
+per-env tensors. Torque control is not ported: the env raises if
+``pdControl`` is off.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from ase_tpu_torch.envs import obs as obs_kernels
+from ase_tpu_torch.envs.domain_rand import DomainRandomizer
 from ase_tpu_torch.ops import quat as rot
 from ase_tpu_torch.physics import dynamics, dynamics2, engine, mjcf
 from ase_tpu_torch.physics.solver import SolverConfig
@@ -39,28 +46,29 @@ class EnvState:
     terminate_buf: torch.Tensor   # (B,) int32
     progress: torch.Tensor        # (B,) int32
     actions: torch.Tensor         # (B, nd)
-    aux: Dict[str, torch.Tensor]  # task/AMP extensions, all (B, ...)
+    aux: Dict[str, torch.Tensor]  # task/AMP extensions, (B, ...) or 0-d (global)
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
 
 
 def take(state: EnvState, idx: torch.Tensor) -> EnvState:
-    """Rows ``idx`` of every per-env tensor."""
+    """Rows ``idx`` of every per-env tensor (0-d ``aux`` entries pass)."""
     kw = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     out = {}
     for k, v in kw.items():
         if k == "phys":
             out[k] = dynamics.State(*(x[idx] for x in v))
         elif k == "aux":
-            out[k] = {a: x[idx] for a, x in v.items()}
+            out[k] = {a: x[idx] if x.dim() else x for a, x in v.items()}
         else:
             out[k] = v[idx]
     return EnvState(**out)
 
 
 def put(state: EnvState, idx: torch.Tensor, sub: EnvState) -> EnvState:
-    """``state`` with rows ``idx`` replaced by ``sub`` (new tensors)."""
+    """``state`` with rows ``idx`` replaced by ``sub`` (new tensors); 0-d
+    ``aux`` entries keep ``state``'s."""
     def p(x, y):
         x = x.clone()
         x[idx] = y
@@ -72,7 +80,7 @@ def put(state: EnvState, idx: torch.Tensor, sub: EnvState) -> EnvState:
         if f.name == "phys":
             out[f.name] = dynamics.State(*(p(x, y) for x, y in zip(v, w)))
         elif f.name == "aux":
-            out[f.name] = {a: p(x, w[a]) for a, x in v.items()}
+            out[f.name] = {a: p(x, w[a]) if x.dim() else x for a, x in v.items()}
         else:
             out[f.name] = p(v, w)
     return EnvState(**out)
@@ -92,8 +100,6 @@ class Humanoid:
         self.cfg = cfg
         self.device = torch.device(device)
         env_cfg = cfg["env"]
-        if bool(cfg.get("task", {}).get("randomize", False)):
-            raise NotImplementedError("domain randomization is not ported yet")
         if not bool(env_cfg.get("pdControl", True)):
             raise NotImplementedError("torque control (pdControl: false) is not ported")
         self.num_envs = int(env_cfg["numEnvs"])
@@ -103,6 +109,8 @@ class Humanoid:
         self._root_height_obs = bool(env_cfg.get("rootHeightObs", True))
         self._enable_early_termination = bool(env_cfg["enableEarlyTermination"])
         self._termination_height = float(env_cfg.get("terminationHeight", 0.15))
+        # each step publishes the applied dof torques in aux["dof_forces"]
+        self._expose_dof_forces = bool(env_cfg.get("exposeDofForces", False))
 
         self.asset_file = env_cfg["asset"]["assetFileName"]
         path = mjcf.find_asset(env_cfg["asset"]["assetRoot"], self.asset_file)
@@ -110,6 +118,7 @@ class Humanoid:
         model = self._build_model(path)
         self.model = model.replace(plane_friction=torch.tensor(
             float(plane.get("staticFriction", 1.0)), device=self.device))
+        self._plane_restitution = float(plane.get("restitution", 0.0))
 
         sim = cfg.get("sim", {})
         self.sim_dt = float(sim.get("dt", 1.0 / 60.0))
@@ -142,6 +151,11 @@ class Humanoid:
         self._build_pd_action_offset_scale()
         self._build_termination_heights()
         self.reset_chunk = int(env_cfg.get("resetChunk", 0))
+
+        task = cfg.get("task", {})
+        self._dr = DomainRandomizer(
+            task.get("randomization_params") if task.get("randomize", False) else None,
+            generator=task.get("actor_params_generator"))
 
         self._initial_root_pos = torch.tensor([0.0, 0.0, 0.89], device=self.device)
         self.gen = torch.Generator(device=self.device)
@@ -200,7 +214,17 @@ class Humanoid:
         return s._replace(root_pos=self._initial_root_pos.expand(batch, 3).clone())
 
     def _initial_aux(self, B: int) -> Dict[str, torch.Tensor]:
-        return {}
+        aux = {}
+        if self._expose_dof_forces:
+            aux["dof_forces"] = torch.zeros(B, self.model.nd, device=self.device)
+        if self._dr.enabled:
+            # the reference's granularity: friction per shape, mass per
+            # body, stiffness and damping per dof
+            m = self.model
+            aux.update(_dr_aux(self._dr.init_scales(
+                B, self._plane_restitution, num_bodies=m.nb, num_shapes=m.nb + m.num_props,
+                num_dofs=m.nd, device=self.device)))
+        return aux
 
     def initial_state(self) -> EnvState:
         """Construct and fully reset the batched env state."""
@@ -224,8 +248,15 @@ class Humanoid:
         return self._reset_envs(state, torch.ones(B, dtype=torch.bool, device=dev),
                                 self._draw_reset(B))
 
+    def _actor_scale(self, state: EnvState):
+        """The per-env geometric scale, or None while its knob is off."""
+        if "actor_scale" in self._dr.specs:
+            return state.aux["dr_actor_scale"]
+        return None
+
     def _refresh_kinematics(self, state: EnvState) -> EnvState:
-        kin = dynamics2.fk_batched(self.model, self._tables.dyn, state.phys)
+        kin = dynamics2.fk_batched(self.model, self._tables.dyn, state.phys,
+                                   self._actor_scale(state))
         return state.replace(body_pos=kin.body_pos, body_quat=kin.body_quat,
                              body_vel=kin.body_vel[..., 3:6],
                              body_ang_vel=kin.body_vel[..., 0:3])
@@ -233,8 +264,31 @@ class Humanoid:
     # -- resets -------------------------------------------------------------------
 
     def _draw_reset(self, n: int) -> Dict[str, torch.Tensor]:
-        """Random numbers one reset pass over ``n`` envs consumes."""
-        return {}
+        """Random numbers one reset pass over ``n`` envs consumes: with
+        domain randomization, a unit draw per sampled knob (``dr_<knob>``,
+        at the knob's shape) and the generator's samples (``dr_gen_<knob>``)."""
+        d = {}
+        if self._dr.enabled:
+            m = self.model
+            elems = {"friction_scale": (m.nb + m.num_props,), "mass_scale": (m.nb,),
+                     "stiffness_scale": (m.nd,), "damping_scale": (m.nd,)}
+            for knob, spec in self._dr.specs.items():
+                d["dr_" + knob] = self._unit(spec, (n,) + elems.get(knob, ()))
+            if self._dr.generator is not None:
+                d.update({"dr_gen_" + k: v for k, v in self._dr.generator(self.gen, n).items()})
+        return d
+
+    def _unit(self, spec, shape) -> torch.Tensor:
+        """Standard normals for a gaussian spec, else uniforms on [0, 1)."""
+        if spec.distribution == "gaussian":
+            return torch.randn(shape, generator=self.gen, device=self.device)
+        return torch.rand(shape, generator=self.gen, device=self.device)
+
+    def _draw_dr_noise(self, which: str, shape) -> torch.Tensor:
+        """Unit draws of the ``actions`` or ``observations`` noise of one
+        control step (None when the block has no such entry)."""
+        spec = self._dr.act_spec if which == "actions" else self._dr.obs_spec
+        return None if spec is None else self._unit(spec, shape)
 
     def reset_done(self, state: EnvState) -> EnvState:
         """Reset every env whose reset_buf is set.
@@ -269,6 +323,11 @@ class Humanoid:
         return put(state, idx, sub), n
 
     def _reset_envs(self, state: EnvState, mask: torch.Tensor, draws) -> EnvState:
+        if self._dr.enabled:
+            scales = self._dr.resample_scales(
+                {k: draws["dr_" + k] for k in self._dr.specs}, _dr_scales(state.aux), mask,
+                {k[len("dr_gen_"):]: v for k, v in draws.items() if k.startswith("dr_gen_")})
+            state = state.replace(aux={**state.aux, **_dr_aux(scales)})
         new_state, mask = self._reset_actors(state, mask, draws)
         phys = where_phys(mask, new_state.phys, state.phys)
         zero = torch.zeros_like(state.progress)
@@ -296,21 +355,45 @@ class Humanoid:
 
     def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         actions = torch.clamp(actions, -1.0, 1.0)
+        knobs = {}
+        if self._dr.enabled:
+            scales = self._dr.tick(_dr_scales(state.aux))
+            state = state.replace(aux={**state.aux, **_dr_aux(scales)})
+            actions = self._dr.randomize_actions(
+                self._draw_dr_noise("actions", actions.shape), actions, scales["step_count"])
+            knobs = self._engine_knobs(scales)
         state, tgt = self.pre_physics_step(state, actions)
         phys, kin0 = state.phys, None
         for _ in range(self.control_freq_inv):
             out = engine.step_batched(self.model, self.sim_cfg, self._tables, phys, tgt,
-                                      kin0=kin0)
+                                      kin0=kin0, **knobs)
             phys, kin0 = out.state, out.kin
         state = state.replace(phys=phys, body_pos=out.body_pos, body_quat=out.body_quat,
                               body_vel=out.body_vel, body_ang_vel=out.body_ang_vel,
                               contact_forces=out.contact_forces)
+        if self._expose_dof_forces:
+            state = state.replace(aux={**state.aux, "dof_forces": out.dof_forces})
         return self.post_physics_step(state)
+
+    def _engine_knobs(self, scales) -> Dict[str, torch.Tensor]:
+        """The engine's randomization knobs, as the reference hands them
+        over: friction, gain, mass and gravity always (ones where their
+        entry is absent), damping, restitution and scale only when sampled."""
+        knobs = {"friction_scale": scales["friction_scale"],
+                 "gain_scale": scales["stiffness_scale"],
+                 "mass_scale": scales["mass_scale"], "gravity_scale": scales["gravity_scale"]}
+        for knob in ("damping_scale", "restitution", "actor_scale"):
+            if knob in self._dr.specs:
+                knobs[knob] = scales[knob]
+        return knobs
 
     def post_physics_step(self, state: EnvState) -> EnvState:
         state = state.replace(progress=state.progress + 1)
         state = self._update_aux(state)
         obs = self._compute_observations(state)
+        if self._dr.enabled:
+            obs = self._dr.randomize_observations(
+                self._draw_dr_noise("observations", obs.shape), obs, state.aux["dr_step_count"])
         rew = self._compute_reward(state)
         reset, term = self._compute_reset(state)
         return state.replace(obs=obs, rew=rew, reset_buf=reset, terminate_buf=term)
@@ -331,3 +414,14 @@ class Humanoid:
             state.progress, state.contact_forces[:, :self.model.nb], self._contact_mask,
             state.body_pos, float(self.max_episode_length),
             self._enable_early_termination, self._termination_heights)
+
+
+def _dr_aux(scales: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The randomizer's state as ``aux`` entries (``dr_`` + its key)."""
+    return {k if k.startswith("dr_") else "dr_" + k: v for k, v in scales.items()}
+
+
+def _dr_scales(aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The randomizer's state out of ``aux``."""
+    return {("dr_count" if k == "dr_count" else k[3:]): v for k, v in aux.items()
+            if k.startswith("dr_")}

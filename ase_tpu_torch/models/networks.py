@@ -14,18 +14,45 @@ obs + latent; the encoder shares the discriminator trunk and L2-normalizes
 its head. HRL: separate actor/critic MLPs on the task observation, whose
 action is a latent of the low-level controller. Trained weights come from
 ``learning.checkpoint``.
+
+Mixed precision (``config.mixed_precision``, else ``ASE_TPU_BF16=1``): the
+parameters stay float32 and every dense layer computes as flax's
+``nn.Dense(dtype=bfloat16)`` does -- input and kernel cast to bfloat16, a
+bfloat16 product (float32 accumulation), then the bias added in bfloat16.
+relu and the style net's tanh run in bfloat16; each head (``mu``,
+``value``, ``disc_logits``, ``enc_head``) is cast back to float32 before
+anything reads it. The compute dtype is explicit per layer, not
+``torch.autocast``, so the CPU and the card run the same roundings.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def _init_linear(layer: nn.Linear, gen: torch.Generator, scale: float = None) -> nn.Linear:
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters computing in ``compute_dtype``
+    (None: the parameters' own dtype)."""
+
+    def __init__(self, a: int, b: int, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(a, b)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return F.linear(x, self.weight, self.bias)
+        # flax's order: a rounded product, then a rounded bias add
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def _init_linear(layer: Dense, gen: torch.Generator, scale: float = None) -> Dense:
     """Weight U(+-scale), scale 1/sqrt(fan_in) by default; zero bias."""
     if scale is None:
         scale = 1.0 / math.sqrt(layer.in_features)
@@ -35,17 +62,20 @@ def _init_linear(layer: nn.Linear, gen: torch.Generator, scale: float = None) ->
     return layer
 
 
-def _linear(a: int, b: int, gen: torch.Generator, scale: float = None) -> nn.Linear:
-    return _init_linear(nn.Linear(a, b), gen, scale)
+def _linear(a: int, b: int, gen: torch.Generator, scale: float = None,
+            dtype: Optional[torch.dtype] = None) -> Dense:
+    return _init_linear(Dense(a, b, dtype), gen, scale)
 
 
 class MLP(nn.Module):
     """Dense + relu stack; parameters named Dense_0..Dense_{n-1} as in flax."""
 
-    def __init__(self, in_dim: int, units: Sequence[int], gen: torch.Generator):
+    def __init__(self, in_dim: int, units: Sequence[int], gen: torch.Generator,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [in_dim, *units]
-        self.layers = nn.ModuleList(_linear(a, b, gen) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(_linear(a, b, gen, dtype=dtype)
+                                    for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
         for layer in self.layers:
@@ -58,35 +88,36 @@ class AMPNetwork(nn.Module):
 
     def __init__(self, obs_dim: int, amp_obs_dim: int, actions_num: int,
                  units: Sequence[int], disc_units: Sequence[int],
-                 sigma_init_val: float = -2.9, gen: torch.Generator = None):
+                 sigma_init_val: float = -2.9, gen: torch.Generator = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.actor_mlp = MLP(obs_dim, units, gen)
-        self.critic_mlp = MLP(obs_dim, units, gen)
-        self.mu = _linear(units[-1], actions_num, gen)
-        self.value = _linear(units[-1], 1, gen)
+        self.actor_mlp = MLP(obs_dim, units, gen, dtype)
+        self.critic_mlp = MLP(obs_dim, units, gen, dtype)
+        self.mu = _linear(units[-1], actions_num, gen, dtype=dtype)
+        self.value = _linear(units[-1], 1, gen, dtype=dtype)
         self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
-        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen)
-        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0)
+        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen, dtype)
+        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0, dtype=dtype)
 
     def eval_actor(self, obs) -> Tuple[torch.Tensor, torch.Tensor]:
-        mu = self.mu(self.actor_mlp(obs))
+        mu = self.mu(self.actor_mlp(obs)).float()
         return mu, self.sigma.expand(mu.shape)
 
     def eval_critic(self, obs) -> torch.Tensor:
-        return self.value(self.critic_mlp(obs))
+        return self.value(self.critic_mlp(obs)).float()
 
     def eval_disc(self, amp_obs) -> torch.Tensor:
-        return self.disc_logits(self.disc_mlp(amp_obs))
+        return self.disc_logits(self.disc_mlp(amp_obs)).float()
 
 
 class StyleNet(nn.Module):
     """Latent -> tanh style vector."""
 
     def __init__(self, latent_dim: int, style_units: Sequence[int], style_dim: int,
-                 gen: torch.Generator):
+                 gen: torch.Generator, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp = MLP(latent_dim, style_units, gen)
-        self.out = _linear(style_units[-1], style_dim, gen, scale=1.0)
+        self.mlp = MLP(latent_dim, style_units, gen, dtype)
+        self.out = _linear(style_units[-1], style_dim, gen, scale=1.0, dtype=dtype)
 
     def forward(self, z):
         return torch.tanh(self.out(self.mlp(z)))
@@ -98,31 +129,33 @@ class ASENetwork(nn.Module):
     def __init__(self, obs_dim: int, amp_obs_dim: int, actions_num: int, latent_dim: int,
                  units: Sequence[int], disc_units: Sequence[int],
                  style_units: Sequence[int] = (512, 256), sigma_init_val: float = -2.9,
-                 gen: torch.Generator = None):
+                 gen: torch.Generator = None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.style_net = StyleNet(latent_dim, style_units, latent_dim, gen)
-        self.actor_mlp = MLP(obs_dim + latent_dim, units, gen)
-        self.critic_mlp = MLP(obs_dim + latent_dim, units, gen)
-        self.mu = _linear(units[-1], actions_num, gen)
-        self.value = _linear(units[-1], 1, gen)
+        self.style_net = StyleNet(latent_dim, style_units, latent_dim, gen, dtype)
+        self.actor_mlp = MLP(obs_dim + latent_dim, units, gen, dtype)
+        self.critic_mlp = MLP(obs_dim + latent_dim, units, gen, dtype)
+        self.mu = _linear(units[-1], actions_num, gen, dtype=dtype)
+        self.value = _linear(units[-1], 1, gen, dtype=dtype)
         self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
-        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen)
-        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0)
-        self.enc_head = _linear(disc_units[-1], latent_dim, gen, scale=0.1)
+        self.disc_mlp = MLP(amp_obs_dim, disc_units, gen, dtype)
+        self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0, dtype=dtype)
+        self.enc_head = _linear(disc_units[-1], latent_dim, gen, scale=0.1, dtype=dtype)
 
     def eval_actor(self, obs, ase_latents) -> Tuple[torch.Tensor, torch.Tensor]:
+        # float32 obs beside a bfloat16 style vector: the cat promotes to
+        # float32, as jnp.concatenate does, and the MLP casts back
         h = torch.cat([obs, self.style_net(ase_latents)], dim=-1)
-        mu = self.mu(self.actor_mlp(h))
+        mu = self.mu(self.actor_mlp(h)).float()
         return mu, self.sigma.expand(mu.shape)
 
     def eval_critic(self, obs, ase_latents) -> torch.Tensor:
-        return self.value(self.critic_mlp(torch.cat([obs, ase_latents], dim=-1)))
+        return self.value(self.critic_mlp(torch.cat([obs, ase_latents], dim=-1))).float()
 
     def eval_disc(self, amp_obs) -> torch.Tensor:
-        return self.disc_logits(self.disc_mlp(amp_obs))
+        return self.disc_logits(self.disc_mlp(amp_obs)).float()
 
     def eval_enc(self, amp_obs) -> torch.Tensor:
-        out = self.enc_head(self.disc_mlp(amp_obs))
+        out = self.enc_head(self.disc_mlp(amp_obs)).float()
         return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-8)
 
 
@@ -131,30 +164,38 @@ class HRLNetwork(nn.Module):
     the action is a latent of the low-level controller."""
 
     def __init__(self, obs_dim: int, actions_num: int, units: Sequence[int],
-                 sigma_init_val: float = -2.3, gen: torch.Generator = None):
+                 sigma_init_val: float = -2.3, gen: torch.Generator = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.actor_mlp = MLP(obs_dim, units, gen)
-        self.critic_mlp = MLP(obs_dim, units, gen)
-        self.mu = _linear(units[-1], actions_num, gen)
-        self.value = _linear(units[-1], 1, gen)
+        self.actor_mlp = MLP(obs_dim, units, gen, dtype)
+        self.critic_mlp = MLP(obs_dim, units, gen, dtype)
+        self.mu = _linear(units[-1], actions_num, gen, dtype=dtype)
+        self.value = _linear(units[-1], 1, gen, dtype=dtype)
         self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
 
     def eval_actor(self, obs) -> Tuple[torch.Tensor, torch.Tensor]:
-        mu = self.mu(self.actor_mlp(obs))
+        mu = self.mu(self.actor_mlp(obs)).float()
         return mu, self.sigma.expand(mu.shape)
 
     def eval_critic(self, obs) -> torch.Tensor:
-        return self.value(self.critic_mlp(obs))
+        return self.value(self.critic_mlp(obs)).float()
+
+
+def _compute_dtype(params) -> Optional[torch.dtype]:
+    """bfloat16 under mixed precision, else None (float32): the config's
+    ``config.mixed_precision`` wins; without the key, ``ASE_TPU_BF16=1``."""
+    mp = params.get("config", {}).get("mixed_precision", None)
+    if mp is None:
+        mp = os.environ.get("ASE_TPU_BF16", "0") == "1"
+    return torch.bfloat16 if mp else None
 
 
 def _checked(params, disc: bool = True):
-    """The network block and the widths the builders take; refuses
-    mixed precision."""
+    """The network block and the keyword arguments the builders take."""
     net = params["network"]
-    if params.get("config", {}).get("mixed_precision", False):
-        raise NotImplementedError("mixed_precision (bf16 matmuls) is not ported yet")
     kw = dict(units=tuple(net["mlp"]["units"]),
-              sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]))
+              sigma_init_val=float(net["space"]["continuous"]["sigma_init"]["val"]),
+              dtype=_compute_dtype(params))
     if disc:
         kw["disc_units"] = tuple(net["disc"]["units"])
     return net, kw

@@ -243,6 +243,7 @@ class DetectConsts:
             return row(np.sqrt(np.maximum(mu_g[i] * mu_g[j], 0.0)))
 
         self.gb = t(gb, torch.long)
+        self.humanoid_geom = t(gb < model.nb, torch.bool)   # actor-scaled geoms
         gq = T.g_rot_local
         self.gloc = tuple(row(gq[:, i, j]) for i in range(3) for j in range(3))
         goff = model.np("geom_pos")
@@ -299,6 +300,11 @@ class DetectConsts:
         self.groups = g
         self.body_a = t(np.concatenate(ba), torch.long)     # (C,)
         self.body_b = t(np.concatenate(bb), torch.long)
+        # per-shape friction columns of each candidate's bodies; the plane
+        # (body -1) reads the extra column nb + np, which holds 1
+        nbp = model.nb + model.num_props
+        self.fric_a = t(np.where(np.concatenate(ba) < 0, nbp, np.concatenate(ba)), torch.long)
+        self.fric_b = t(np.where(np.concatenate(bb) < 0, nbp, np.concatenate(bb)), torch.long)
         self.num_candidates = int(self.body_a.shape[0])
 
 
@@ -345,17 +351,31 @@ def _point_box(c, half):
 def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
                    body_pos: torch.Tensor, prop_quat: torch.Tensor,
                    prop_pos: torch.Tensor, max_contacts: int,
-                   margin: float = 0.0) -> Contacts:
+                   margin: float = 0.0, friction_scale: torch.Tensor = None,
+                   actor_scale: torch.Tensor = None) -> Contacts:
     """Contacts (B, K) for bodies at (body_quat (B, nb, 4), body_pos
     (B, nb, 3)) and free props at (prop_quat (B, np, 4), prop_pos
-    (B, np, 3)) -- ``collision3.detect_batched`` (``collision3.py:304``)
-    without per-body friction or actor-scale randomization. A prop's geoms
-    hang off body nb + k, so the geom gather runs over the bodies and
-    props concatenated."""
+    (B, np, 3)) -- ``collision3.detect_batched`` (``collision3.py:304``).
+    A prop's geoms hang off body nb + k, so the geom gather runs over the
+    bodies and props concatenated.
+
+    Domain randomization: ``friction_scale`` (B, nb + np) multiplies each
+    candidate's friction by sqrt(s_a s_b) before selection (the plane's
+    scale is 1); ``actor_scale`` (B,) scales the humanoid's geom offsets
+    and sizes, not the props'."""
     D = consts
     G = D.groups
     B = body_pos.shape[0]
     gb = D.gb
+    if actor_scale is None:
+        def sg(row, idx):
+            return row
+    else:
+        s_geom = torch.where(D.humanoid_geom[None, :], actor_scale[:, None],
+                             torch.ones((), device=actor_scale.device))      # (B, ng)
+
+        def sg(row, idx):
+            return row * s_geom[:, idx]
     if prop_pos.shape[1]:
         body_quat = torch.cat([body_quat, prop_quat], dim=1)
         body_pos = torch.cat([body_pos, prop_pos], dim=1)
@@ -364,7 +384,8 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
     Rb = _quat_mat_comps(qg.unbind(-1))
     pb = tuple(body_pos[:, gb, k] for k in range(3))
     Rg = _mat_mat(Rb, D.gloc)                              # geom world rotation
-    gp = _add(pb, _mat_vec(Rb, D.goff))
+    goff = D.goff if actor_scale is None else tuple(c * s_geom for c in D.goff)
+    gp = _add(pb, _mat_vec(Rb, goff))
 
     depths, normals, poss, mus = [], [], [], []
 
@@ -377,11 +398,12 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
     if "pl" in G:
         c = G["pl"]
         Rc = _gather(Rg, c["gi"])
-        p = _add(_gather(gp, c["gi"]), _mat_vec(Rc, c["off"]))
+        off = tuple(sg(x, c["gi"]) for x in c["off"])
+        p = _add(_gather(gp, c["gi"]), _mat_vec(Rc, off))
         axis = _col(Rc, 2)
         tdir = (axis[0] * axis[2], axis[1] * axis[2], axis[2] * axis[2] - 1.0)
         tn = torch.clamp(_norm(tdir), min=1e-6)
-        cyl, rad = c["cyl"], c["rad"]
+        cyl, rad = c["cyl"], sg(c["rad"], c["gi"])
         px = p[0] + cyl * tdir[0] / tn * rad
         py = p[1] + cyl * tdir[1] / tn * rad
         pz = p[2] + cyl * tdir[2] / tn * rad - (1.0 - cyl) * rad
@@ -390,17 +412,19 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
 
     if "ss" in G:
         c = G["ss"]
+        ri, rj = sg(c["ri"], c["i"]), sg(c["rj"], c["j"])
         d = _sub(_gather(gp, c["i"]), _gather(gp, c["j"]))
         n, dist = _safe_unit(d)
-        depth = c["ri"] + c["rj"] - dist
-        pos = _add(_gather(gp, c["j"]), _scale(n, c["rj"] - 0.5 * depth))
+        depth = ri + rj - dist
+        pos = _add(_gather(gp, c["j"]), _scale(n, rj - 0.5 * depth))
         emit(depth, n, pos, c["mu"])
 
     if "sc" in G:
         c = G["sc"]
         Rc = _gather(Rg, c["c"])
         axis = _col(Rc, 2)
-        half = c["half"]
+        half = sg(c["half"], c["c"])
+        rs, rc = sg(c["rs"], c["s"]), sg(c["rc"], c["c"])
         cpos = _gather(gp, c["c"])
         spos = _gather(gp, c["s"])
         a0 = _sub(cpos, _scale(axis, half))
@@ -408,16 +432,17 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
         t = _dot(_sub(spos, a0), seg) / torch.clamp(_dot(seg, seg), min=1e-9)
         q = _add(a0, _scale(seg, torch.clamp(t, 0.0, 1.0)))
         n, dist = _safe_unit(_sub(spos, q))
-        depth = c["rs"] + c["rc"] - dist
-        pos = _add(q, _scale(n, c["rc"] - 0.5 * depth))
+        depth = rs + rc - dist
+        pos = _add(q, _scale(n, rc - 0.5 * depth))
         n = _scale(n, 1.0 - 2.0 * c["flip"])
         emit(depth, n, pos, c["mu"])
 
     if "cc" in G:
         c = G["cc"]
         Ri, Rj = _gather(Rg, c["i"]), _gather(Rg, c["j"])
-        ai = _scale(_col(Ri, 2), c["hi"])
-        aj = _scale(_col(Rj, 2), c["hj"])
+        ri, rj = sg(c["ri"], c["i"]), sg(c["rj"], c["j"])
+        ai = _scale(_col(Ri, 2), sg(c["hi"], c["i"]))
+        aj = _scale(_col(Rj, 2), sg(c["hj"], c["j"]))
         pi, pj = _gather(gp, c["i"]), _gather(gp, c["j"])
         a0, d1 = _sub(pi, ai), _scale(ai, 2.0)
         b0, d2 = _sub(pj, aj), _scale(aj, 2.0)
@@ -439,8 +464,8 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
         pa = _add(a0, _scale(d1, s))
         pb_ = _add(b0, _scale(d2, t_cl))
         n, dist = _safe_unit(_sub(pa, pb_))
-        depth = c["ri"] + c["rj"] - dist
-        pos = _add(pb_, _scale(n, c["rj"] - 0.5 * depth))
+        depth = ri + rj - dist
+        pos = _add(pb_, _scale(n, rj - 0.5 * depth))
         emit(depth, n, pos, c["mu"])
 
     if "bo" in G:
@@ -448,26 +473,32 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
         Rb_ = _gather(Rg, c["bx"])
         pbox = _gather(gp, c["bx"])
         axis = _col(_gather(Rg, c["ot"]), 2)
-        sample = _add(_gather(gp, c["ot"]), _scale(axis, c["amp"]))
+        sample = _add(_gather(gp, c["ot"]), _scale(axis, sg(c["amp"], c["ot"])))
         c_local = _mat_t_vec(Rb_, _sub(sample, pbox))
-        dpt, n_l, surf_l = _point_box(c_local, c["half"])
+        dpt, n_l, surf_l = _point_box(c_local, tuple(sg(x, c["bx"]) for x in c["half"]))
         n_w = _mat_vec(Rb_, n_l)
         pos = _add(pbox, _mat_vec(Rb_, surf_l))
-        emit(dpt + c["r"], _scale(n_w, c["sign"]), pos, c["mu"])
+        emit(dpt + sg(c["r"], c["ot"]), _scale(n_w, c["sign"]), pos, c["mu"])
 
     if "bb" in G:
         c = G["bb"]
         Rs, Rd = _gather(Rg, c["src"]), _gather(Rg, c["dst"])
         ps_, pd_ = _gather(gp, c["src"]), _gather(gp, c["dst"])
-        cw = _add(ps_, _mat_vec(Rs, c["corner"]))
+        cw = _add(ps_, _mat_vec(Rs, tuple(sg(x, c["src"]) for x in c["corner"])))
         c_local = _mat_t_vec(Rd, _sub(cw, pd_))
-        dpt, n_l, surf_l = _point_box(c_local, c["half"])
+        dpt, n_l, surf_l = _point_box(c_local, tuple(sg(x, c["dst"]) for x in c["half"]))
         n_w = _mat_vec(Rd, n_l)
         pos = _add(pd_, _mat_vec(Rd, surf_l))
         emit(dpt, _scale(n_w, c["sign"]), pos, c["mu"])
 
     depth = torch.cat(depths, dim=1)                        # (B, C)
     C = depth.shape[1]
+    mu = torch.cat(mus, 1)
+    if friction_scale is not None:
+        # the combined friction is a geometric mean, so per-shape scales
+        # combine as sqrt(s_a s_b); the plane's scale is 1
+        fs = torch.cat([friction_scale, torch.ones_like(friction_scale[:, :1])], dim=1)
+        mu = mu * torch.sqrt(fs[:, D.fric_a] * fs[:, D.fric_b])
     ba = D.body_a.to(depth.dtype).expand(B, C)
     bb_ = D.body_b.to(depth.dtype).expand(B, C)
     # (B, 10, C+1) features; the extra zero column feeds unfilled slots
@@ -477,7 +508,7 @@ def detect_batched(consts: DetectConsts, body_quat: torch.Tensor,
         torch.cat([p[2] for p in poss], 1),
         torch.cat([n[0] for n in normals], 1), torch.cat([n[1] for n in normals], 1),
         torch.cat([n[2] for n in normals], 1),
-        torch.cat(mus, 1), ba, bb_,
+        mu, ba, bb_,
     ], dim=1)
     feats = torch.cat([feats, feats.new_zeros(B, feats.shape[1], 1)], dim=2)
 

@@ -146,11 +146,15 @@ def dof_pos_batched(model: M.Model, tables: DofTables, states: State) -> torch.T
 
 
 def pd_torques_batched(model: M.Model, tables: DofTables, states: State,
-                       pd_target: torch.Tensor, dt: float) -> torch.Tensor:
-    """(B, nd) Stable-PD torques (no damping randomization)."""
+                       pd_target: torch.Tensor, dt: float,
+                       kd_scale: torch.Tensor = None) -> torch.Tensor:
+    """(B, nd) Stable-PD torques. ``kd_scale`` is a damping multiplier per
+    env (B,) or per dof (B, nd) (domain randomization)."""
     B = pd_target.shape[0]
     kp, kd = model.stiffness, model.damping
     qd = states.u[:, model.root_dofs:model.nu]
+    if kd_scale is not None and kd_scale.dim() == 1:
+        kd_scale = kd_scale[:, None].expand(B, model.nd)
     out = torch.zeros(B, model.nd, device=pd_target.device)
     sc, hc = tables.sph_cols, tables.hin_cols
     if len(tables.sph_rows):
@@ -160,11 +164,14 @@ def pd_torques_batched(model: M.Model, tables: DofTables, states: State,
         w_loc = qd[:, sc].reshape(B, -1, 3)
         kp_s = kp[sc].reshape(-1, 3)
         kd_s = kd[sc].reshape(-1, 3)
+        if kd_scale is not None:
+            kd_s = kd_s * kd_scale[:, sc].reshape(B, -1, 3)
         tau_s = kp_s * (err - dt * w_loc) - kd_s * w_loc
         out[:, sc] = tau_s.reshape(B, -1)
     if len(tables.hin_rows):
         e = pd_target[:, hc] - states.hinge_q[:, tables.hin_rows]
-        out[:, hc] = kp[hc] * (e - dt * qd[:, hc]) - kd[hc] * qd[:, hc]
+        kd_h = kd[hc] if kd_scale is None else kd[hc] * kd_scale[:, hc]
+        out[:, hc] = kp[hc] * (e - dt * qd[:, hc]) - kd_h * qd[:, hc]
     return out
 
 

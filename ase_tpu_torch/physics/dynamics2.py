@@ -6,8 +6,10 @@ Every vector / matrix entry is its own ``(n, B)`` tensor (bodies or dofs
 first, envs last), spatial inertias use their (m, h, I) form, and the mass
 matrix comes out in the (nu, nu, B) layout the Cholesky kernel takes. The
 arithmetic and its order are the reference's, so the two agree to float32
-rounding. Domain-randomization multipliers (mass, gravity, damping, actor
-scale) are not ported: the shipped getup config runs with them off.
+rounding. The domain-randomization knobs are the reference's too: mass per
+env or per body, gravity and damping per env (damping also per dof), and
+the actor's geometric scale (link offsets x s, mass x s^3, rotational
+inertia x s^5).
 """
 
 from __future__ import annotations
@@ -98,6 +100,20 @@ class DynStatic:
         eye = np.eye(model.nu, dtype=np.float32) * (diag + damp)[None, :]
         return torch.as_tensor(eye, device=model.device)[:, :, None]
 
+    def diag_parts(self, model: M.Model, dt: float):
+        """The diagonal split for damping randomization: ((nu, nu, 1)
+        armature + root angular damping, (nu, 1) dt x joint damping)."""
+        rd = model.root_dofs
+        diag = np.zeros(model.nu, np.float32)
+        diag[rd:] = model.np("armature")
+        if rd == 6:
+            diag[3:6] += dt * float(model.np("ang_damping"))
+        damp = np.zeros(model.nu, np.float32)
+        damp[rd:] = dt * model.np("damping")
+        eye = np.eye(model.nu, dtype=np.float32) * diag[None, :]
+        return (torch.as_tensor(eye, device=model.device)[:, :, None],
+                torch.as_tensor(damp, device=model.device)[:, None])
+
 
 def _mm_multi(mat, comps):
     """One (m, n) matrix applied to k (n, B) planes in a single matmul."""
@@ -154,10 +170,34 @@ def _sym_mv(Ssym, v):
 
 
 def compute_dynamics_batch_last(model: M.Model, st: DynStatic, states, kin,
-                                diag: torch.Tensor):
+                                diag: torch.Tensor, mass_scale=None, gravity_scale=None,
+                                damping_scale=None, actor_scale=None, diag_parts=None):
     """(M_bl (nu, nu, B), bias (B, nu), Phi (B, nu, 6)); ``diag`` is
-    ``st.diag(model, dt)``."""
+    ``st.diag(model, dt)``.
+
+    Domain-randomization knobs (``dynamics2.py:163``): ``mass_scale`` per
+    env (B,), which scales M before the armature and the bias, or per body
+    (B, nb), folded into the body masses and inertias before assembly;
+    ``gravity_scale`` (B,); ``damping_scale`` (B,) or per dof (B, nd),
+    which scales the dt x damping part of the implicit diagonal and needs
+    ``diag_parts = st.diag_parts(model, dt)``; ``actor_scale`` (B,), with
+    ``kin`` from the same scaled FK: mass x s^3 and rotational inertia
+    x s^5, folded into the per-body path."""
     B = states.root_pos.shape[0]
+    nb = model.nb
+    per_body_mass = mass_scale is not None and mass_scale.dim() == 2
+    ms_bl = mass_scale.T if per_body_mass else None          # (nb, B)
+    isym_extra = None
+    if actor_scale is not None:
+        s_bl = actor_scale[None, :]
+        s3 = s_bl * s_bl * s_bl
+        if ms_bl is None:
+            ms_bl = s3 if mass_scale is None else mass_scale[None, :] * s3
+            ms_bl = ms_bl.expand(nb, B)
+        else:
+            ms_bl = ms_bl * s3
+        per_body_mass = True
+        isym_extra = s_bl * s_bl
 
     q = kin.body_quat                                   # (B, nb, 4)
     Rc = _quat_R(tuple(q[..., k].T for k in range(4)))  # 9 x (nb, B)
@@ -192,6 +232,10 @@ def compute_dynamics_batch_last(model: M.Model, st: DynStatic, states, kin,
     Isym = _symprod_RIR(Rc, st.Ii)
     c_off = tuple(cc - o for cc, o in zip(cw, origin))
     mass = st.mass
+    if per_body_mass:
+        mass = mass * ms_bl
+        i_f = ms_bl if isym_extra is None else ms_bl * isym_extra
+        Isym = tuple(c * i_f for c in Isym)
     h = tuple(mass * c for c in c_off)
     c2 = _dot(c_off, c_off)
     TL = (
@@ -209,7 +253,7 @@ def compute_dynamics_batch_last(model: M.Model, st: DynStatic, states, kin,
 
     TLd = tuple(t[dbd] for t in TLc)
     hd = tuple(t[dbd] for t in hc)
-    md = st.msub_d
+    md = (st.S @ mass)[dbd] if per_body_mass else st.msub_d
     F_a = tuple(s + c for s, c in zip(_sym_mv(TLd, phi_a), _cross(hd, phi_l)))
     F_l = tuple(c + md * pl for c, pl in zip(_cross(phi_a, hd), phi_l))
 
@@ -231,7 +275,10 @@ def compute_dynamics_batch_last(model: M.Model, st: DynStatic, states, kin,
     fv_l = _cross(vs_a, Iv_l)
     fb_a = tuple(s + c + f for s, c, f in zip(_sym_mv(TL, ab_a), _cross(h, ab_l), fv_a))
     fb_l = tuple(c + mass * ak + f for c, ak, f in zip(_cross(ab_a, h), ab_l, fv_l))
-    Fg = tuple(mass * gk for gk in st.gravity)
+    if gravity_scale is not None:
+        Fg = tuple(mass * gk * gravity_scale[None, :] for gk in st.gravity)
+    else:
+        Fg = tuple(mass * gk for gk in st.gravity)
     tau_g = _cross(c_off, Fg)
     ft_a = tuple(f - t for f, t in zip(fb_a, tau_g))
     ft_l = tuple(f - t for f, t in zip(fb_l, Fg))
@@ -239,7 +286,23 @@ def compute_dynamics_batch_last(model: M.Model, st: DynStatic, states, kin,
     Fd = _mm_multi(st.At, ft_a + ft_l)
     bias = sum(p_ * f_ for p_, f_ in zip(phi_a + phi_l, Fd[:3] + Fd[3:]))
 
-    M_bl = M_bl + diag
+    if mass_scale is not None and not per_body_mass:
+        M_bl = M_bl * mass_scale[None, None, :]
+        bias = bias * mass_scale[None, :]
+
+    if damping_scale is None:
+        M_bl = M_bl + diag
+    else:
+        # only the dt x damping part of the diagonal scales
+        arm, damp = diag_parts
+        rd = model.root_dofs
+        if damping_scale.dim() == 2:
+            ds = torch.ones(model.nu, B, device=damping_scale.device)
+            ds[rd:] = damping_scale.T
+        else:
+            ds = damping_scale[None, :]
+        M_bl = M_bl + arm
+        M_bl.diagonal(dim1=0, dim2=1).add_((damp * ds).T)
     Phi = torch.stack([c.T for c in phi_a + phi_l], dim=-1)   # (B, nu, 6)
     return M_bl, bias.T, Phi
 
@@ -267,10 +330,17 @@ def _qrot_c(q, v):
             vz + w * tz + (x * ty - y * tx))
 
 
-def fk_batched(model: M.Model, st: DynStatic, states) -> dynamics.Kin:
+def fk_batched(model: M.Model, st: DynStatic, states, actor_scale=None) -> dynamics.Kin:
     """Batched position + velocity FK (``dynamics2.fk_batched``,
-    ``dynamics2.py:409``) without the actor-scale knob."""
+    ``dynamics2.py:409``). ``actor_scale`` (B,) multiplies every body
+    offset and COM offset (domain randomization's geometric scale)."""
     nb = model.nb
+    if actor_scale is None:
+        def S(c3):
+            return c3
+    else:
+        def S(c3):
+            return tuple(actor_scale * x for x in c3)
     rq = tuple(states.root_quat[:, k] for k in range(4))
     rp = tuple(states.root_pos[:, k] for k in range(3))
     u = states.u
@@ -300,10 +370,10 @@ def fk_batched(model: M.Model, st: DynStatic, states) -> dynamics.Kin:
             if jt == M.FREE:
                 ps.append(rp)
             else:
-                ps.append(tuple(rp[k] + st.ip[b][k] for k in range(3)))
+                ps.append(tuple(rp[k] + off for k, off in enumerate(S(tuple(st.ip[b])))))
         else:
             quats.append(_qmul_c(quats[p], lq))
-            step = _qrot_c(quats[p], tuple(st.ip[b]))
+            step = S(_qrot_c(quats[p], tuple(st.ip[b])))
             ps.append(tuple(ps[p][k] + step[k] for k in range(3)))
 
     vels = [None] * nb
@@ -336,6 +406,6 @@ def fk_batched(model: M.Model, st: DynStatic, states) -> dynamics.Kin:
     body_pos = torch.stack([torch.stack(pp, dim=-1) for pp in ps], dim=1)
     body_vel = torch.stack([torch.stack(w + v, dim=-1) for (w, v) in vels], dim=1)
     R = rot_ops.quat_to_rotation_matrix(body_quat)
-    com_c = [_qrot_c(quats[b], tuple(st.com[b])) for b in range(nb)]
+    com_c = [S(_qrot_c(quats[b], tuple(st.com[b]))) for b in range(nb)]
     com_w = body_pos + torch.stack([torch.stack(c, dim=-1) for c in com_c], dim=1)
     return dynamics.Kin(R, body_pos, body_quat, body_vel, com_w)

@@ -15,10 +15,17 @@ dofs after the articulation's in ``u``, its free step (gravity and the
 gyroscopic term) done explicitly, its inverse mass in the contact solve
 through ``W_prop``. They add no row to the Cholesky kernels' systems.
 
+Domain randomization reaches the tick through the reference's knobs
+(``engine.py:421``): friction per env or per shape, the PD gain
+(stiffness) scale per env or per dof, mass per env or per body, gravity
+(props included), damping, the plane's restitution (a Newton bounce
+target on the pre-solve normal velocities) and the actor's geometric
+scale (FK, dynamics and the humanoid's geoms). A knob left at None costs
+nothing; the Cholesky systems stay n = nu whatever the knobs.
+
 Left out of the port, as the reference keeps them only for A/B work: the
 AoS debug branches, the ``ASE_TPU_*_AOS`` / ``ASE_TPU_COLLISION_PER_SUBSTEP``
-switches and the PGS path; and domain randomization with its restitution
-target, which the envs refuse.
+switches and the PGS path.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ class Tables:
         self.dof = dynamics.dof_tables(model)
         self.Amask = torch.as_tensor(dynamics.ancestor_mask(model), device=model.device)
         self.diag = self.dyn.diag(model, cfg.dt / cfg.substeps)
+        self.diag_parts = self.dyn.diag_parts(model, cfg.dt / cfg.substeps)
         s_ids = dynamics.sph_ids(model)
         self.sph_dofs = torch.as_tensor(
             [model.dof_offset[b] + k for b in s_ids for k in range(3)],
@@ -83,15 +91,18 @@ def _clamp_w(model: M.Model, w: torch.Tensor) -> torch.Tensor:
     return w * torch.clamp(model.max_ang_vel / wn, max=1.0)
 
 
-def _free_props(model: M.Model, states: State, h: float):
-    """The props' free step: gravity on the linear velocity and the
-    gyroscopic term, implicitly damped, on the angular one
-    (``engine.py:229-248``). Returns (u_free_prop (B, 6 np), I_w (B, np,
-    3, 3) world inertias)."""
+def _free_props(model: M.Model, states: State, h: float, gravity_scale=None):
+    """The props' free step: gravity (randomized with the rest of the sim)
+    on the linear velocity and the gyroscopic term, implicitly damped, on
+    the angular one (``engine.py:229-248``). Returns (u_free_prop (B,
+    6 np), I_w (B, np, 3, 3) world inertias)."""
     Bn, P = states.u.shape[0], model.num_props
     blk = states.u[:, model.nu:].reshape(Bn, P, 6)
     R = rot.quat_to_rotation_matrix(states.prop_quat)               # (B, np, 3, 3)
-    v = blk[..., 0:3] + h * model.gravity
+    if gravity_scale is None:
+        v = blk[..., 0:3] + h * model.gravity
+    else:
+        v = blk[..., 0:3] + h * model.gravity * gravity_scale[:, None, None]
     I_w = torch.einsum("bpij,pjk,bplk->bpil", R, model.inertia[model.nb:], R)
     w = blk[..., 3:6]
     Iww = torch.einsum("bpij,bpj->bpi", I_w, w)
@@ -101,19 +112,27 @@ def _free_props(model: M.Model, states: State, h: float):
 
 
 def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
-                     actions: torch.Tensor, kin: dynamics.Kin, contacts):
+                     actions: torch.Tensor, kin: dynamics.Kin, contacts, gain_scale=None,
+                     mass_scale=None, gravity_scale=None, damping_scale=None,
+                     restitution=None, actor_scale=None):
     h = cfg.dt / cfg.substeps
     nu, rd, P = model.nu, model.root_dofs, model.num_props
     Bn = actions.shape[0]
 
-    M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(model, T.dyn, states, kin, T.diag)
+    M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(
+        model, T.dyn, states, kin, T.diag, mass_scale=mass_scale, gravity_scale=gravity_scale,
+        damping_scale=damping_scale, actor_scale=actor_scale, diag_parts=T.diag_parts)
 
-    tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h)
-    tau = tau + dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
+    tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h, kd_scale=damping_scale)
+    limit = dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
+    if gain_scale is None:
+        tau = tau + limit
+    else:   # stiffness randomization scales the whole PD torque
+        tau = tau * (gain_scale[:, None] if gain_scale.dim() == 1 else gain_scale) + limit
     tau_full = torch.zeros(Bn, nu, device=actions.device)
     tau_full[:, rd:] = tau
     if P:
-        u_free_prop, I_w = _free_props(model, states, h)
+        u_free_prop, I_w = _free_props(model, states, h, gravity_scale)
 
     # Z-form: with Z = L^-1 J^T the Delassus operator is A = Z^T Z and the
     # free contact velocity is J u + h Z^T y0, y0 = L^-1 (tau - bias)
@@ -139,7 +158,16 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
         W_prop = torch.cat([lin, ang], dim=2).reshape(Bn, 6 * P, -1)
         A = A + torch.bmm(JT_prop.transpose(1, 2), W_prop).to(A.dtype)
         v0f = v0f + torch.einsum("bvi,bv->bi", JT_prop, u_free_prop)
-    lam_f = solver2.jacobi_lambda(contacts, A, v0f, h, cfg.solver)
+    if restitution is None:
+        lam_f = solver2.jacobi_lambda(contacts, A, v0f, h, cfg.solver)
+    else:
+        # the pre-solve normal contact velocities, the bounce's reference
+        vn_pre = v_art_cur
+        if P:
+            vn_pre = vn_pre + torch.einsum("bvi,bv->bi", JT_prop, states.u[:, nu:])
+        vn_pre = vn_pre[:, :contacts.depth.shape[1]]
+        lam_f = solver2.jacobi_lambda(contacts, A, v0f, h, cfg.solver,
+                                      restitution=restitution, vn_pre=vn_pre)
 
     du_bl = (h * y0 + torch.einsum("vib,bi->vb", Z, lam_f))[:, None, :].contiguous()
     u_new = u_art + chol.back_solve(L_bl, du_bl)[:, 0, :].T
@@ -179,17 +207,34 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
 
 
 def step_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
-                 actions: torch.Tensor, kin0: Optional[dynamics.Kin] = None) -> StepOut:
+                 actions: torch.Tensor, friction_scale=None, gain_scale=None,
+                 mass_scale=None, gravity_scale=None, damping_scale=None,
+                 restitution=None, actor_scale=None,
+                 kin0: Optional[dynamics.Kin] = None) -> StepOut:
     """Advance one sim tick (``cfg.substeps`` substeps). ``kin0`` is an
-    optional FK of ``states`` (the previous tick's ``StepOut.kin``)."""
-    kin = kin0 if kin0 is not None else dynamics2.fk_batched(model, T.dyn, states)
+    optional FK of ``states`` (the previous tick's ``StepOut.kin``, from the
+    same ``actor_scale``).
+
+    The domain-randomization knobs, each None when off: ``friction_scale``
+    (B,) or per shape (B, nb + np); ``gain_scale`` (B,) or per dof (B, nd);
+    ``mass_scale`` (B,) or per body (B, nb); ``gravity_scale`` (B,);
+    ``damping_scale`` (B,) or (B, nd); ``restitution`` (B,); ``actor_scale``
+    (B,)."""
+    kin = kin0 if kin0 is not None else dynamics2.fk_batched(model, T.dyn, states, actor_scale)
+    per_shape = friction_scale is not None and friction_scale.dim() == 2
     contacts = collision3.detect_batched(
         T.detect, kin.body_quat, kin.body_pos, states.prop_quat, states.prop_pos,
-        cfg.max_contacts, margin=cfg.solver.contact_offset)
+        cfg.max_contacts, margin=cfg.solver.contact_offset,
+        friction_scale=friction_scale if per_shape else None, actor_scale=actor_scale)
+    if friction_scale is not None and not per_shape:
+        contacts = contacts._replace(friction=contacts.friction * friction_scale[:, None])
     forces = tau = None
     for _ in range(cfg.substeps):
-        states, forces, tau = _substep_batched(model, cfg, T, states, actions, kin, contacts)
-        kin = dynamics2.fk_batched(model, T.dyn, states)
+        states, forces, tau = _substep_batched(
+            model, cfg, T, states, actions, kin, contacts, gain_scale=gain_scale,
+            mass_scale=mass_scale, gravity_scale=gravity_scale, damping_scale=damping_scale,
+            restitution=restitution, actor_scale=actor_scale)
+        kin = dynamics2.fk_batched(model, T.dyn, states, actor_scale)
     return StepOut(
         state=states,
         body_pos=kin.body_pos,

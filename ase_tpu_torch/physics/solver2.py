@@ -112,9 +112,15 @@ def _inv3_comps(D):
 
 
 def jacobi_lambda(contacts: Contacts, A: torch.Tensor, v0f: torch.Tensor,
-                  dt: float, cfg: SolverConfig) -> torch.Tensor:
+                  dt: float, cfg: SolverConfig, restitution: torch.Tensor = None,
+                  vn_pre: torch.Tensor = None) -> torch.Tensor:
     """Block-Jacobi Coulomb iteration on the Delassus operator A (B, 3K, 3K)
     (``solver2.py:238``). Returns lam (B, 3K), component-grouped.
+
+    With ``restitution`` (B,) and ``vn_pre`` (B, K), the pre-solve normal
+    contact velocities, an impacting contact gets a Newton bounce target:
+    its normal velocity is driven to e max(-vn_pre, 0) on top of the
+    Baumgarte bias.
 
     With ``cfg.matvec_bf16`` the operator and each iterate enter the matvec
     rounded to bfloat16 and the products accumulate in float32, as the
@@ -130,6 +136,8 @@ def jacobi_lambda(contacts: Contacts, A: torch.Tensor, v0f: torch.Tensor,
         cfg.baumgarte / dt * torch.clamp(contacts.depth - cfg.slop, min=0.0),
         max=cfg.max_depenetration_velocity,
     ) + torch.clamp(contacts.depth, max=0.0) / dt
+    if restitution is not None:
+        v_bias = v_bias + restitution[:, None] * torch.clamp(-vn_pre, min=0.0)
 
     A_it = A.to(torch.bfloat16).to(torch.float32) if cfg.matvec_bf16 else A.to(torch.float32)
 

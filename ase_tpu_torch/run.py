@@ -33,6 +33,9 @@ shipped one):
       --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \
       --llc_checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz
 
+A train config with ``mixed_precision: true`` trains in bfloat16 (float32
+master weights and heads), and ``--randomize`` with an env config's
+``task.randomization_params`` block trains under domain randomization.
 ``--multi_gpu`` / ``--horovod`` and ``--save_video`` are not ported yet and
 raise. Without a card the command raises unless ``--device cpu`` is given.
 """
@@ -55,9 +58,11 @@ def build_alg_runner():
     return {"amp": AMPAgent, "ase": ASEAgent, "hrl": HRLAgent}, PLAYER_REGISTRY
 
 
-def build_agent(argv=None):
+def build_agent(argv=None, edit_cfg=None):
     """Parse ``argv``, build the env and the agent of the config's algo.
-    Returns (agent, args, cfg)."""
+    ``edit_cfg(cfg, cfg_train)``, if given, may change the loaded configs
+    in place first (as a yaml of one's own would). Returns (agent, args,
+    cfg)."""
     from ase_tpu_torch.envs import parse_task
     from ase_tpu_torch.utils import config as cfg_util
 
@@ -72,10 +77,14 @@ def build_agent(argv=None):
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the port runs on the card (or pass --device cpu)")
-        # the reference pins float32 products to full precision
+        # the reference pins float32 products to full precision, and its
+        # bfloat16 products accumulate in float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg, cfg_train = cfg_util.load_cfg(args)
+    if edit_cfg is not None:
+        edit_cfg(cfg, cfg_train)
     algo = cfg_train["params"]["algo"]["name"]
     algos, _ = build_alg_runner()
     if algo not in algos:

@@ -5,17 +5,21 @@
 The workload of bench.py: HumanoidAMPGetup on the sword-shield humanoid,
 the 87-clip Reallusion dataset, self-collision on, 4096 envs, horizon 32,
 minibatch min(16384, envs x horizon), resetChunk 512, and the ASEAgent's
-full PPO + AMP + ASE update at the shipped widths, float32
-(``mixed_precision: false``, TF32 off), built by ``ase_tpu_torch.run``'s
-``build_agent`` as the training CLI builds it. After the train state, the
-fall-state drop and one warm-up epoch, N epochs are timed on the host
-clock, ending in a device sync.
+full PPO + AMP + ASE update at the shipped widths, built by
+``ase_tpu_torch.run``'s ``build_agent`` as the training CLI builds it, once
+in float32 (the shipped ``mixed_precision: false``, TF32 off) and once
+under mixed precision (``mixed_precision: true``, bench.py's default:
+bfloat16 products accumulated in float32), with the same seed and epochs,
+so the two are compared on one host. For each: after the train state, the
+fall-state drop (made once, for the first agent) and one warm-up epoch, N
+epochs are timed on the host clock, ending in a device sync.
 
-Prints one JSON line: env-steps/s on the card, its unit, the card's name and
-power limit (as ``nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader`` gives them), ``mixed_precision``, and the mean
-rollout / update split. There is no ``vs_baseline``: the TPU baseline of
-bench.py does not describe this card. Needs the card.
+Prints one JSON line: the float32 env-steps/s as ``value`` and both
+precisions' env-steps/s with their mean rollout / update split, their
+ratio, the unit, and the card's name and power limit (as ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`` gives them). There is
+no ``vs_baseline``: the TPU baseline of bench.py does not describe this
+card. Needs the card.
 """
 
 import argparse
@@ -27,7 +31,7 @@ import torch
 
 # the agent the training CLI builds (chip_smoke.py's train phase passes the
 # same flags); bench.py's self-collision and resetChunk 512 are the shipped
-# env config's own, and are checked, not set
+# env config's own, and are checked, not set; mixed_precision is set per run
 ARGV = [
     "--task", "HumanoidAMPGetup",
     "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
@@ -46,21 +50,51 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch.py measures the card: torch.cuda.is_available() is false")
 
+    runs, fall_states = {}, None
+    for mixed in (False, True):
+        runs["bf16" if mixed else "float32"], fall_states = _run(args, mixed, fall_states)
+        torch.cuda.empty_cache()
+
+    name, power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].split(", ")
+    print(json.dumps({
+        "metric": "ase_train_env_steps_per_sec",
+        "value": runs["float32"]["env_steps_per_s"],
+        "unit": f"env-steps/s (full ASE train epoch, {args.num_envs} envs, horizon "
+                f"{args.horizon}, one card)",
+        "name": name.strip(), "power.limit": power.strip(), "epochs": args.epochs,
+        "float32": runs["float32"], "bf16": runs["bf16"],
+        "bf16_over_float32": runs["bf16"]["env_steps_per_s"] / runs["float32"]["env_steps_per_s"],
+    }))
+
+
+def _run(args, mixed: bool, fall_states):
+    """Train a fresh agent of the given precision: set-up, one warm-up
+    epoch, then ``args.epochs`` timed epochs. Returns (its numbers, the
+    fall states, for the next agent's env)."""
     from ase_tpu_torch import run
+
+    def precision(cfg, cfg_train):
+        cfg_train["params"]["config"]["mixed_precision"] = mixed
 
     agent, _, _ = run.build_agent(ARGV + [
         "--num_envs", str(args.num_envs), "--horizon_length", str(args.horizon),
-        "--minibatch_size", str(min(16384, args.num_envs * args.horizon))])
-    mixed = agent.cfg_train["params"]["config"].get("mixed_precision", False)
-    if not (agent.env.sim_cfg.enable_self_collision and agent.env.reset_chunk == 512 and not mixed):
+        "--minibatch_size", str(min(16384, args.num_envs * args.horizon))], edit_cfg=precision)
+    dtype = agent.network.mu.compute_dtype
+    if not (agent.env.sim_cfg.enable_self_collision and agent.env.reset_chunk == 512
+            and dtype == (torch.bfloat16 if mixed else None)):
         raise SystemExit("bench_torch.py runs bench.py's workload: self-collision on, "
-                         "resetChunk 512, mixed_precision false")
+                         f"resetChunk 512, mixed_precision {mixed}")
+    if fall_states is not None:
+        agent.env._fall_states = fall_states     # env construction, the same for both runs
     t0 = time.time()
     env_state = agent.setup_training()
     env_state, _ = agent.train_epoch(env_state)          # warm-up
     setup_s = time.time() - t0
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     rollout_s = update_s = 0.0
     for _ in range(args.epochs):
@@ -69,21 +103,11 @@ def main(argv=None):
         update_s += rec["update_s"]
     torch.cuda.synchronize()
     wall = time.time() - t0
-
-    name, power = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].split(", ")
     steps = args.epochs * args.horizon * args.num_envs
-    print(json.dumps({
-        "metric": "ase_train_env_steps_per_sec",
-        "value": steps / wall,
-        "unit": f"env-steps/s (full ASE train epoch, {args.num_envs} envs, horizon "
-                f"{args.horizon}, one card)",
-        "name": name.strip(), "power.limit": power.strip(),
-        "mixed_precision": mixed, "epochs": args.epochs,
-        "rollout_s_per_epoch": rollout_s / args.epochs, "update_s_per_epoch": update_s / args.epochs,
-        "setup_and_warmup_s": setup_s,
-    }))
+    return {"mixed_precision": mixed, "env_steps_per_s": steps / wall,
+            "rollout_s_per_epoch": rollout_s / args.epochs,
+            "update_s_per_epoch": update_s / args.epochs, "setup_and_warmup_s": setup_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, agent.env._fall_states
 
 
 if __name__ == "__main__":

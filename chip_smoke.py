@@ -67,8 +67,16 @@ Phases, each printed with its wall time against its budget:
               three normalizers and epoch must be bit-equal to the saved
               agent's; it trains epoch 3 (TRAIN_LAUNCHES launches each), and
               the directory is deleted.
-
-9. strike  -- ``ase_tpu_torch.run``'s player on HumanoidStrike: the shipped
+9. train_bf16 -- the same training branch under ``mixed_precision: true``
+              (bfloat16 dense layers over float32 parameters and heads) for
+              TRAIN_BF16_EPOCHS epoch, the train phase's fall states reused:
+              exactly TRAIN_LAUNCHES of each kernel, finite metrics, every
+              weight changed, the actor's activations bfloat16 on the card
+              and the parameters float32. Then ``check_minibatch_bf16``:
+              one full-width 256-row update on the card and on the CPU, both
+              bf16, the card on the CPU's relu gates, at the bounds its
+              docstring derives from bf16 rounding.
+10. strike -- ``ase_tpu_torch.run``'s player on HumanoidStrike: the shipped
               strike high-level controller over the shipped low-level
               controller at 4096 envs (one free prop each, the target box),
               one chunk of STRIKE_DECISIONS decisions, as the hrl phase;
@@ -76,12 +84,12 @@ Phases, each printed with its wall time against its budget:
               steps the engine). Env-steps/s, decisions/s, the mean task
               reward, the windowed LLC discriminator reward and the success
               rates are printed.
-10. strike_profile -- one strike control step (a decision cut to one LLC
+11. strike_profile -- one strike control step (a decision cut to one LLC
               step) under torch.profiler: launches per control step and
               device-busy share with a prop.
-11. strike_check -- ``check_tick`` on 8 of those envs (the box stands on
+12. strike_check -- ``check_tick`` on 8 of those envs (the box stands on
               the plane, so prop contacts are always present).
-12. hrl_train -- ``ase_tpu_torch.run``'s training branch on HumanoidStrike
+13. hrl_train -- ``ase_tpu_torch.run``'s training branch on HumanoidStrike
               with the shipped hrl_humanoid.yaml at its widths (1024-512)
               over the shipped LLC, 4096 envs, HRL_TRAIN_EPOCHS epoch (only
               the epoch count is cut): exactly HRL_TRAIN_LAUNCHES of each
@@ -90,13 +98,25 @@ Phases, each printed with its wall time against its budget:
               final checkpoint resumed into a new agent (``run.build_agent
               --resume 1``): HLC weights, Adam state, normalizers and epoch
               bit-equal, and no further epoch.
-13. perturb -- ``ase_tpu_torch.run``'s ASE player with the shipped LLC on
+14. perturb -- ``ase_tpu_torch.run``'s ASE player with the shipped LLC on
               HumanoidPerturb (13 box projectiles per env) at 4096 envs for
               PERTURB_STEPS control steps (the first projectiles launch at
               steps 60 and 67): exactly PERTURB_LAUNCHES of each kernel, and
               the share of envs still above their termination heights.
-14. perturb_check -- ``check_tick`` on 8 envs with a projectile in flight
+15. perturb_check -- ``check_tick`` on 8 envs with a projectile in flight
               near the character or in contact.
+16. dr     -- one ASE training epoch under domain randomization: HumanoidAMP
+              on humanoid_ase_sword_shield.yaml with ase_humanoid.yaml and
+              ``--randomize``, the block of ``dr_block()`` (frequency 2,
+              every knob and both noises on), 4096 envs, through the
+              constructors ``run.build_agent`` uses: exactly TRAIN_LAUNCHES
+              of each kernel, finite metrics, every knob away from its base
+              in some env, every env reset at least once; then one control
+              step (reset pass, actor, two ticks) profiled with the
+              randomizer on and off: the launches the knobs add.
+17. dr_check -- ``check_tick`` on DR_CHECK_ENVS of those envs with every
+              knob away from its base (restitution and actor scale
+              included), card against CPU.
 
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
@@ -125,9 +145,9 @@ HRL_TRAIN_LAUNCHES = 32 * 5 * 2 * 2                # per epoch: horizon 32 decis
 PERTURB_STEPS = 72
 PERTURB_LAUNCHES = PERTURB_STEPS * 2 * 2
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
-            "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "strike": 240,
-            "strike_profile": 60, "strike_check": 60, "hrl_train": 300, "perturb": 240,
-            "perturb_check": 60}
+            "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "train_bf16": 150,
+            "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
+            "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -187,6 +207,45 @@ MB_GATE_RTOL = 1e-5              # ... a relu gate off the witness's: |pre-activ
 MB_STEP_ATOL = 1e-3              # ... new weights vs Adam's first step from the side's own gradients, x lr
 MB_W_ATOL = 1e-2                 # ... new weights card vs CPU, x lr, where the witness's |g| is
 MB_W_GMIN = 1e-4                 #     above MB_W_GMIN of its tensor's largest
+MB16_FWD_RTOL = 2.0 ** -6        # bf16 minibatch, card vs CPU: policy means, of their largest
+MB16_LOSS_RTOL = 2.0 ** -8       # ... losses, of max(1, |loss|)
+MB16_GRAD_RTOL = 2.0 ** -5       # ... gradients, of each tensor's largest (4 bf16 ulps)
+MB16_ROW_RTOL = 2.0 ** -6        # ... a bias gradient, also of its layer's sum of |cotangent|
+MB16_GATE_RTOL = 2.0 ** -5       # ... a relu gate off the CPU's: |pre-activation| of the layer's largest
+TRAIN_BF16_EPOCHS = 1
+DR_EPOCHS = 1
+DR_CHECK_ENVS = 8
+DR_ENVS = 4096
+DR_ARGV = [
+    "--task", "HumanoidAMP",
+    "--cfg_env", "humanoid_ase_sword_shield.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--num_envs", str(DR_ENVS), "--max_iterations", str(DR_EPOCHS), "--seed", "0",
+    "--randomize",
+]
+
+
+def dr_block():
+    """The randomization_params block that tests/test_domain_rand.py
+    holds the reference to: frequency 2, every knob and both noises on."""
+    def spec(lo, hi, op, dist):
+        return {"range": [lo, hi], "operation": op, "distribution": dist}
+
+    return {
+        "frequency": 2,
+        "observations": spec(0.0, 0.002, "additive", "gaussian"),
+        "actions": spec(0.0, 0.02, "additive", "gaussian"),
+        "sim_params": {"gravity": spec(0.8, 1.2, "scaling", "uniform")},
+        "actor_params": {"humanoid": {
+            "scale": spec(0.85, 1.15, "scaling", "uniform"),
+            "rigid_body_properties": {"mass": spec(0.7, 1.3, "scaling", "uniform")},
+            "rigid_shape_properties": {"friction": spec(0.7, 1.3, "scaling", "uniform"),
+                                       "restitution": spec(0.0, 0.7, "additive", "uniform")},
+            "dof_properties": {"stiffness": spec(0.8, 1.2, "scaling", "uniform"),
+                               "damping": spec(0.5, 1.5, "scaling", "uniform")},
+        }},
+    }
 
 
 class Failed(Exception):
@@ -475,18 +534,30 @@ def player_phase(card):
 
 
 def profile_phase(player, card, steps=1):
-    """Device-busy share and top kernels over ``steps`` control steps. The
+    """Device-busy share and top kernels over ``steps`` control steps of
+    the player."""
+    carry = [player.env_state, player.roll]
+
+    def step():
+        carry[0], carry[1], _, _ = player._policy_step(*carry)
+
+    return _profile(type(player.env).__name__, step, card, steps)
+
+
+def _profile(label, step, card, steps=1):
+    """Device-busy share and top kernels over ``steps`` calls of
+    ``step()``, one control step each; returns the kernel launches per
+    control step (None if the profiler records no device time). The
     profiler's own host overhead lengthens the wall time, so the busy share
     is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state, roll = player.env_state, player.roll
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(steps):
-            state, roll, _, _ = player._policy_step(state, roll)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -494,9 +565,9 @@ def profile_phase(player, card, steps=1):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("profile: not measured (the profiler recorded no device time)")
-        return
+        return None
     launches = sum(e.count for e in kernels)
-    print(f"profile of {type(player.env).__name__} over {steps} control steps ({card}): wall "
+    print(f"profile of {label} over {steps} control steps ({card}): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / wall_us:.1f}%), {launches / steps:.0f} kernel launches per control step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -507,13 +578,15 @@ def profile_phase(player, card, steps=1):
     print("  Cholesky kernels: " + ", ".join(
         f"{k} {us / 1e3 / steps:.3f} ms/step" for k, us in chol_us.items())
         + f", {100 * sum(chol_us.values()) / busy_us:.2f}% of device busy time")
+    return launches / steps
 
 
-def check_tick(model, cfg, state, targets):
+def check_tick(model, cfg, state, targets, knobs=None):
     """One engine tick from ``state`` on the card (kernels) and on the CPU
-    (plain versions), float32 contact solve on both sides. Raises Failed
-    unless positions and rotations (of the props too) agree to TICK_POS_TOL
-    and velocities to
+    (plain versions), float32 contact solve on both sides, with the domain
+    randomization ``knobs`` of ``engine.step_batched`` if given. Raises
+    Failed unless positions and rotations (of the props too) agree to
+    TICK_POS_TOL and velocities to
     TICK_VEL_RTOL of their scale (the two devices sum float32 products in
     different orders), or unless the card tick skipped the kernels. Returns
     the max errors."""
@@ -527,7 +600,9 @@ def check_tick(model, cfg, state, targets):
         m = model.to(dev)
         st = type(state)(*(x.to(dev) for x in state))
         before = chol.LAUNCHES["chol_forward2"]
-        out[dev] = engine.step_batched(m, cfg, engine.Tables(m, cfg), st, targets.to(dev)).state
+        kw = {k: v.to(dev) for k, v in (knobs or {}).items()}
+        out[dev] = engine.step_batched(m, cfg, engine.Tables(m, cfg), st, targets.to(dev),
+                                       **kw).state
         launched = chol.LAUNCHES["chol_forward2"] - before
         if launched != (cfg.substeps if dev == "cuda" else 0):
             raise Failed(f"tick on {dev} launched chol_forward2 {launched} times")
@@ -744,7 +819,7 @@ def _in_temp_dir(prefix, fn):
 def train_phase(card, rows):
     """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, the
     resume of its checkpoint and one more epoch, then ``check_minibatch``
-    on the first agent. Returns the epoch records."""
+    on the first agent. Returns the epoch records and the fall states."""
     return _in_temp_dir("smoke_train_", lambda out_dir: _train(card, rows, out_dir))
 
 
@@ -850,7 +925,7 @@ def _train(card, rows, out_dir):
     if not bool(torch.isfinite(env_state.obs).all()):
         raise Failed("non-finite observations after training")
     check_minibatch(agent)
-    return records
+    return records, agent.env._fall_states
 
 
 def _twin(agent, device, z, dtype=None):
@@ -898,6 +973,97 @@ def _gate_mlps(net, gates=None):
     return pres
 
 
+def _minibatch_case(agent, rows, seed):
+    """A minibatch of ``rows`` rows in the agent's dataset layout, made on
+    the CPU from ``seed`` near the agent's own policy (ratios on both sides
+    of the clip), and the diversity draw; returns (mb, z_div)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    n, A, L = rows, agent.action_dim, agent._latent_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    z = randn(n, L)
+    z = z / torch.linalg.norm(z, dim=-1, keepdim=True)
+    obs = randn(n, agent.obs_dim) * 2 + 0.5
+    z_div = randn(n, L)
+    base = _twin(agent, "cpu", z_div)
+    with torch.no_grad():
+        mu, log_sigma = base.network.eval_actor(base.obs_rms.normalize(obs), z)
+        actions = mu + 0.05 * randn(n, A)
+        neglogp = base._neglogp(actions, mu, log_sigma) + 0.15 * randn(n)
+    mb = {"obs_n": obs, "actions": actions, "neglogp": neglogp, "values": randn(n, 1),
+          "returns": randn(n, 1), "advantages": randn(n), "mu": mu + 0.01 * randn(n, A),
+          "sigma": log_sigma.clone(), "rand_action_mask": (torch.rand(n, generator=gen) < 0.7).float(),
+          "amp_obs": randn(n, agent.amp_obs_dim), "amp_obs_replay": randn(n, agent.amp_obs_dim),
+          "amp_obs_demo": randn(n, agent.amp_obs_dim), "ase_latents": z}
+    return mb, z_div
+
+
+def _cotangent_l1(net):
+    """Record, for every bfloat16 dense layer of ``net``, the sum over rows
+    (and calls) of |cotangent at its output| in float32, keyed by its bias
+    parameter's name, into the returned dict as the backward runs."""
+    from ase_tpu_torch.models.networks import Dense
+
+    out = {}
+
+    def forward_hook(name):
+        def hook(module, inputs, y):
+            if y.requires_grad:
+                def grad_hook(g):
+                    s = g.detach().float().abs().reshape(-1, g.shape[-1]).sum(0).cpu().double()
+                    out[name] = out.get(name, 0) + s
+                y.register_hook(grad_hook)
+        return hook
+
+    for name, m in net.named_modules():
+        if isinstance(m, Dense) and m.compute_dtype is not None:
+            m.register_forward_hook(forward_hook(f"{name}.bias"))
+    return out
+
+
+def _update_twin(agent, mb, z_div, dev, dtype, gates=None):
+    """One ``_update_minibatch`` of ``mb`` by a twin of ``agent`` on
+    ``dev`` (its parameters in ``dtype``; None keeps them and the network's
+    compute dtype), its relus on ``gates`` if given. Returns its losses,
+    gradients, old and new weights (float64, CPU), relu pre-activations,
+    the bf16 layers' cotangent sums (``_cotangent_l1``) and Adam's lr and
+    eps."""
+    import torch
+
+    twin = _twin(agent, dev, z_div, dtype)
+    twin._amp_minibatch_size = mb["obs_n"].shape[0]
+    pres = _gate_mlps(twin.network, gates)
+    l1 = _cotangent_l1(twin.network)
+    params = list(twin.network.parameters())
+    old = [p.detach().cpu().double() for p in params]
+    metrics = twin._update_minibatch({k: v.to(dev, dtype) for k, v in mb.items()})
+    if gates is not None and len(pres) != len(gates):
+        raise Failed(f"minibatch check: {len(pres)} relu calls on {dev}, {len(gates)} given gates")
+    (group,) = twin.optimizer.param_groups
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": [torch.zeros_like(o) if p.grad is None else p.grad.detach().cpu().double()
+                      for p, o in zip(params, old)],
+            "old": old, "new": [p.detach().cpu().double() for p in params],
+            "pres": [x.cpu().double() for x in pres], "cot_l1": l1,
+            "lr": group["lr"], "eps": group["eps"]}
+
+
+def _policy_means(agent, mb, z_div, dev):
+    """The policy means a minibatch update of ``mb`` on ``dev`` computes
+    (after its normalizer updates), on the CPU."""
+    import torch
+
+    twin = _twin(agent, dev, z_div)
+    twin._amp_minibatch_size = mb["obs_n"].shape[0]
+    with torch.no_grad():
+        pm = twin._preproc_minibatch({k: v.to(dev) for k, v in mb.items()})
+        return twin._actor_sigma(pm["obs_n"], pm)[0].cpu()
+
+
 def check_minibatch(agent, rows=256, seed=0, device="cuda"):
     """One minibatch update (normalizer updates, PPO + discriminator +
     encoder + diversity losses, backward, Adam step) of ``rows`` rows from
@@ -923,42 +1089,10 @@ def check_minibatch(agent, rows=256, seed=0, device="cuda"):
     relative to its tensor and the gate differences per side."""
     import torch
 
-    gen = torch.Generator().manual_seed(seed)
-    n, A, L = rows, agent.action_dim, agent._latent_dim
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen)
-
-    z = randn(n, L)
-    z = z / torch.linalg.norm(z, dim=-1, keepdim=True)
-    obs = randn(n, agent.obs_dim) * 2 + 0.5
-    z_div = randn(n, L)
-    base = _twin(agent, "cpu", z_div)
-    with torch.no_grad():
-        mu, log_sigma = base.network.eval_actor(base.obs_rms.normalize(obs), z)
-        actions = mu + 0.05 * randn(n, A)
-        neglogp = base._neglogp(actions, mu, log_sigma) + 0.15 * randn(n)
-    mb = {"obs_n": obs, "actions": actions, "neglogp": neglogp, "values": randn(n, 1),
-          "returns": randn(n, 1), "advantages": randn(n), "mu": mu + 0.01 * randn(n, A),
-          "sigma": log_sigma.clone(), "rand_action_mask": (torch.rand(n, generator=gen) < 0.7).float(),
-          "amp_obs": randn(n, agent.amp_obs_dim), "amp_obs_replay": randn(n, agent.amp_obs_dim),
-          "amp_obs_demo": randn(n, agent.amp_obs_dim), "ase_latents": z}
+    mb, z_div = _minibatch_case(agent, rows, seed)
 
     def update(dev, dtype, gates=None):
-        twin = _twin(agent, dev, z_div, dtype)
-        twin._amp_minibatch_size = n
-        pres = _gate_mlps(twin.network, gates)
-        params = list(twin.network.parameters())
-        old = [p.detach().cpu().double() for p in params]
-        metrics = twin._update_minibatch({k: v.to(dev, dtype) for k, v in mb.items()})
-        if gates is not None and len(pres) != len(gates):
-            raise Failed(f"minibatch check: {len(pres)} relu calls on {dev}, {len(gates)} in the witness")
-        (group,) = twin.optimizer.param_groups
-        return {"metrics": {k: float(v) for k, v in metrics.items()},
-                "grads": [torch.zeros_like(o) if p.grad is None else p.grad.detach().cpu().double()
-                          for p, o in zip(params, old)],
-                "old": old, "new": [p.detach().cpu().double() for p in params],
-                "pres": [x.cpu().double() for x in pres], "lr": group["lr"], "eps": group["eps"]}
+        return _update_twin(agent, mb, z_div, dev, dtype, gates)
 
     wit = update("cpu", torch.float64)
     gates = [x > 0 for x in wit["pres"]]
@@ -1021,6 +1155,301 @@ def check_minibatch(agent, rows=256, seed=0, device="cuda"):
           f"(tol {MB_GRAD_RTOL}; worst {grad_err[1]}); relu gates differing from the witness's: "
           f"card {flips['card']}, CPU {flips['cpu']} of {sum(x.numel() for x in gates)}", flush=True)
     return loss_err, grad_err[0], flips
+
+
+def train_bf16_phase(card, rows, fall_states):
+    """TRAIN_BF16_EPOCHS epoch of ``ase_tpu_torch.run``'s training branch
+    with the shipped ase_humanoid.yaml under ``mixed_precision: true``, then
+    ``check_minibatch_bf16``. Returns the epoch records."""
+    return _in_temp_dir("smoke_bf16_", lambda out_dir: _train_bf16(card, rows, fall_states,
+                                                                    out_dir))
+
+
+def _train_bf16(card, rows, fall_states, out_dir):
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    def bf16(cfg, cfg_train):
+        cfg_train["params"]["config"]["mixed_precision"] = True
+
+    t0 = time.time()
+    agent, _, _ = run.build_agent(TRAIN_ARGV + ["--max_iterations", str(TRAIN_BF16_EPOCHS),
+                                                "--output_path", out_dir], edit_cfg=bf16)
+    agent.env._fall_states = fall_states          # the train phase's drop: env construction
+    env_state = agent.setup_training()
+    torch.cuda.synchronize()
+    widths = _train_widths(agent)
+    print(f"train_bf16 setup: {time.time() - t0:.1f} s (fall states reused); widths {widths}",
+          flush=True)
+    seen = {}
+
+    def record(name):
+        def hook(module, inputs, output):
+            seen.setdefault(name, output.dtype)
+        return hook
+
+    hooks = [agent.network.actor_mlp.register_forward_hook(record("actor activation")),
+             agent.network.mu.register_forward_hook(record("mu layer"))]
+    before = [p.detach().clone() for p in agent.network.parameters()]
+    records = []
+
+    def on_epoch(rec):
+        rec["launches"] = dict(chol.LAUNCHES)
+        chol.reset_launches()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        m = rec["metrics"]
+        print(f"train_bf16 epoch {rec['epoch']}: wall {rec['wall_s']:.2f} s (rollout "
+              f"{rec['rollout_s']:.2f} s, update {rec['update_s']:.2f} s), "
+              f"{rec['env_steps_per_s']:.1f} env-steps/s; " + ", ".join(
+                  f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "disc_loss", "enc_loss",
+                                               "diversity_loss", "kl"))
+              + f"; launches {rec['launches']}; peak device memory {rec['peak_gib']:.2f} GiB "
+              f"({card})", flush=True)
+        records.append(rec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chol.reset_launches()
+    env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
+    for h in hooks:
+        h.remove()
+    print(f"train_bf16 dtypes on the card: {seen}; parameters "
+          f"{sorted({str(p.dtype) for p in agent.network.parameters()})}", flush=True)
+    if seen != {"actor activation": torch.bfloat16, "mu layer": torch.bfloat16}:
+        raise Failed(f"mixed precision: the actor ran in {seen}, want bfloat16")
+    if {p.dtype for p in agent.network.parameters()} != {torch.float32}:
+        raise Failed("mixed precision: the parameters must stay float32")
+    if len(records) != TRAIN_BF16_EPOCHS:
+        raise Failed(f"trained {len(records)} bf16 epochs, want {TRAIN_BF16_EPOCHS}")
+    for rec in records:
+        bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise Failed(f"bf16 epoch {rec['epoch']}: non-finite metrics {bad}")
+        want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+        if rec["launches"] != want:
+            raise Failed(f"bf16 epoch {rec['epoch']}: launches {rec['launches']}, want {want}")
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(agent.network.parameters(), before))
+    if moved < len(before):
+        raise Failed(f"bf16 training changed {moved} of {len(before)} weight tensors")
+    if not bool(torch.isfinite(env_state.obs).all()):
+        raise Failed("non-finite observations after bf16 training")
+    check_minibatch_bf16(agent)
+    return records
+
+
+def check_minibatch_bf16(agent, rows=256, seed=0, device="cuda"):
+    """One minibatch update of ``rows`` rows from ``agent``'s weights under
+    mixed precision (bfloat16 dense layers, float32 parameters, heads and
+    losses) on ``device`` and on the CPU, with the same batch and draws.
+
+    Both sides accumulate their products in float32 and round each layer's
+    output to bfloat16, in different summation orders, so an output within
+    a float32 rounding of a bf16 rounding boundary lands on neighbouring
+    bf16 values (2^-8 to 2^-7 apart, relative) on the two sides, and that
+    moves the layers after it. Three consequences shape the check:
+
+    * a head output may differ by a bf16 ulp or two: the policy means are
+      held to MB16_FWD_RTOL (2^-6) of their largest;
+    * a relu pre-activation near 0 may open on one side only, which moves
+      that sample's backward through every layer below it: the card runs
+      on the CPU's own relu gates, after the check has shown that its own
+      gates differ from them only where the CPU's pre-activation is within
+      MB16_GATE_RTOL of the layer's largest;
+    * the PPO ratio divides the action error by sigma^2 (~3e-3), so a mean
+      one bf16 ulp apart moves a row's log-ratio by ~0.05 and can cross
+      the clip, where the row's whole contribution switches on or off
+      (sigma's gradient, a sum of such rows with much cancellation, moved
+      by a third of its largest in one run): rows whose means differ in
+      any element leave the actor, bound and diversity terms on both sides
+      (``rand_action_mask`` 0), and are counted; summation order alone
+      moves the means of a few rows in a hundred, so at least half the
+      rows must agree bit for bit.
+
+    Then it raises Failed unless every loss agrees to MB16_LOSS_RTOL of
+    max(1, |loss|) and every gradient, before the Adam step, to
+    MB16_GRAD_RTOL of its tensor's largest magnitude (four bf16 ulps: the
+    gradient GEMM's rounding and three more along a few flipped inputs),
+    a bias gradient also within MB16_ROW_RTOL (two bf16 ulps) of the sum
+    over rows of |cotangent| at its layer: a bias gradient is that sum with
+    much cancellation, each row's cotangent an ulp or two apart on the two
+    sides. The float64 witness of ``check_minibatch`` holds float32 only.
+    Returns the largest relative loss and gradient errors and the relu
+    gates and rows that differ."""
+    import torch
+
+    if agent.network.mu.compute_dtype != torch.bfloat16:
+        raise Failed("check_minibatch_bf16 needs an agent built with mixed_precision: true")
+    mb, z_div = _minibatch_case(agent, rows, seed)
+    mu_cpu, mu_card = (_policy_means(agent, mb, z_div, d) for d in ("cpu", device))
+    mu_err = float((mu_card - mu_cpu).abs().max()) / max(float(mu_cpu.abs().max()), 1e-30)
+    if not mu_err <= MB16_FWD_RTOL:
+        raise Failed(f"bf16 minibatch policy means: card vs CPU {mu_err:.3g} of their largest "
+                     f"(tol {MB16_FWD_RTOL})")
+    same = (mu_card == mu_cpu).all(-1)
+    if int(same.sum()) < rows // 2:
+        raise Failed(f"bf16 minibatch: the policy means differ in {rows - int(same.sum())} of "
+                     f"{rows} rows")
+    mb = {**mb, "rand_action_mask": mb["rand_action_mask"] * same.to(torch.float32)}
+    cpu = _update_twin(agent, mb, z_div, "cpu", None)
+    gates = [x > 0 for x in cpu["pres"]]
+    own = _update_twin(agent, mb, z_div, device, None)
+    flips = 0
+    for i, (pre, ref) in enumerate(zip(own["pres"], cpu["pres"])):
+        off = (pre > 0) != gates[i]
+        flips += int(off.sum())
+        if bool(off.any()):
+            near = float(ref[off].abs().max()) / max(float(ref.abs().max()), 1e-30)
+            if not near <= MB16_GATE_RTOL:
+                raise Failed(f"bf16 minibatch relu call {i}: a card gate differs from the CPU's "
+                             f"at a pre-activation {near:.3g} of the layer's largest")
+    card = _update_twin(agent, mb, z_div, device, None, gates)
+    loss_err = 0.0
+    for k, ref in cpu["metrics"].items():
+        got = card["metrics"][k]
+        e = abs(got - ref) / max(1.0, abs(ref))
+        if not e <= MB16_LOSS_RTOL:
+            raise Failed(f"bf16 minibatch {k}: card {got} vs CPU {ref}")
+        loss_err = max(loss_err, e)
+    errs = []
+    for (name, _), g_cpu, g_card in zip(agent.network.named_parameters(), cpu["grads"],
+                                        card["grads"]):
+        scale = max(float(g_cpu.abs().max()), 1e-30)
+        tol = MB16_GRAD_RTOL * scale + MB16_ROW_RTOL * cpu["cot_l1"].get(name, 0.0)
+        err = (g_card - g_cpu).abs()
+        errs.append((float((err / tol).max()), float(err.max()) / scale, name))
+    errs.sort(reverse=True)
+    print("  bf16 minibatch gradients, card vs CPU (worst 6; error over its bound, of its "
+          "tensor's largest): " + ", ".join(f"{n} {r:.3g}, {e:.3g}" for r, e, n in errs[:6]),
+          flush=True)
+    bad = [n for r, _, n in errs if not r <= 1.0]
+    if bad:
+        raise Failed(f"bf16 minibatch gradients card vs CPU beyond their bounds: {', '.join(bad)}")
+    grad_err = max(e for _, e, _ in errs)
+    print(f"  bf16 minibatch check ({rows} rows): policy means within {mu_err:.3g} of their "
+          f"largest (tol {MB16_FWD_RTOL:.3g}), {rows - int(same.sum())} rows apart in some "
+          f"element left the actor terms; losses within {loss_err:.3g} (tol "
+          f"{MB16_LOSS_RTOL:.3g}); gradients within {grad_err:.3g} of their tensor's largest; "
+          f"card relu gates differing from the CPU's: {flips} of "
+          f"{sum(x.numel() for x in gates)}", flush=True)
+    return loss_err, grad_err, flips
+
+
+def dr_phase(card):
+    """DR_EPOCHS ASE training epoch under domain randomization (HumanoidAMP
+    on humanoid_ase_sword_shield.yaml, the shipped ase_humanoid.yaml,
+    ``--randomize`` with ``dr_block()``) at 4096 envs through the
+    constructors ``run.build_agent`` uses; the launch counts, every knob
+    away from its base in some env, and one control step profiled with
+    the knobs on and off. Returns (epoch records, agent, env state)."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    def block(cfg, cfg_train):
+        cfg["task"]["randomization_params"] = dr_block()
+
+    def train(out_dir):
+        t0 = time.time()
+        agent, _, _ = run.build_agent(DR_ARGV + ["--output_path", out_dir], edit_cfg=block)
+        env = agent.env
+        if not env._dr.enabled or len(env._dr.specs) != 7 or env.num_envs != DR_ENVS:
+            raise Failed(f"dr: randomizer {env._dr.enabled}, knobs {list(env._dr.specs)}")
+        env_state = agent.setup_training()
+        torch.cuda.synchronize()
+        print(f"dr setup: {time.time() - t0:.1f} s", flush=True)
+        records = []
+
+        def on_epoch(rec):
+            rec["launches"] = dict(chol.LAUNCHES)
+            chol.reset_launches()
+            m = rec["metrics"]
+            print(f"dr epoch {rec['epoch']}: wall {rec['wall_s']:.2f} s (rollout "
+                  f"{rec['rollout_s']:.2f} s, update {rec['update_s']:.2f} s), "
+                  f"{rec['env_steps_per_s']:.1f} env-steps/s; " + ", ".join(
+                      f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "disc_loss", "kl"))
+                  + f"; launches {rec['launches']} ({card})", flush=True)
+            records.append(rec)
+
+        torch.cuda.synchronize()
+        chol.reset_launches()
+        env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
+        return agent, env_state, records
+
+    agent, env_state, records = _in_temp_dir("smoke_dr_", train)
+    env = agent.env
+    if len(records) != DR_EPOCHS:
+        raise Failed(f"trained {len(records)} dr epochs, want {DR_EPOCHS}")
+    want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+    for rec in records:
+        if rec["launches"] != want:
+            raise Failed(f"dr epoch {rec['epoch']}: launches {rec['launches']}, want {want}")
+        bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise Failed(f"dr epoch {rec['epoch']}: non-finite metrics {bad}")
+    aux = env_state.aux
+    summary = []
+    for knob, base in (("friction_scale", 1.0), ("mass_scale", 1.0), ("stiffness_scale", 1.0),
+                       ("damping_scale", 1.0), ("gravity_scale", 1.0), ("actor_scale", 1.0),
+                       ("restitution", env._plane_restitution)):
+        v = aux["dr_" + knob]
+        if not bool((v != base).any()) or not bool(torch.isfinite(v).all()):
+            raise Failed(f"dr: {knob} never left its base {base}")
+        summary.append(f"{knob} {float(v.min()):.3f}..{float(v.max()):.3f}")
+    count = aux["dr_count"]
+    if int(count.min()) < 1 or not bool(torch.isfinite(env_state.obs).all()):
+        raise Failed(f"dr: dr_count min {int(count.min())}, or non-finite observations")
+    print(f"dr knobs after the epoch: {'; '.join(summary)}; dr_count {int(count.min())}.."
+          f"{int(count.max())}, {float((count > 1).float().mean()):.4f} of envs reset in the "
+          f"epoch; step_count {float(aux['dr_step_count']):.0f}", flush=True)
+
+    carry = [env_state]
+
+    def step():
+        st = env.reset_done(carry[0])
+        mu, _ = agent._actor_sigma(agent.obs_rms.normalize(st.obs), agent.roll_state)
+        carry[0] = env.step(st, mu)
+
+    with torch.no_grad():
+        on = _profile("HumanoidAMP, domain randomization on", step, card)
+        env._dr.enabled = False
+        try:
+            off = _profile("HumanoidAMP, the same step with the randomizer off", step, card)
+        finally:
+            env._dr.enabled = True
+    if on is not None and off is not None:
+        print(f"dr: {on:.0f} kernel launches per control step with the knobs, {off:.0f} "
+              f"without ({on - off:+.0f})", flush=True)
+    return records, agent, carry[0]
+
+
+def dr_check_phase(agent, env_state):
+    """check_tick on DR_CHECK_ENVS envs with every knob away from its base
+    (the knobs their resets drew), card against CPU."""
+    import torch
+    from ase_tpu_torch.envs.humanoid import _dr_scales
+
+    env = agent.env
+    idx = torch.arange(DR_CHECK_ENVS, device=env_state.obs.device)
+    knobs = {k: v[idx] for k, v in env._engine_knobs(_dr_scales(env_state.aux)).items()}
+    if set(knobs) != {"friction_scale", "gain_scale", "mass_scale", "gravity_scale",
+                      "damping_scale", "restitution", "actor_scale"}:
+        raise Failed(f"dr check: knobs {sorted(knobs)}")
+    for k, v in knobs.items():
+        base = env._plane_restitution if k == "restitution" else 1.0
+        if not bool((v != base).all()):
+            raise Failed(f"dr check: {k} at its base in one of the envs")
+    st = type(env_state.phys)(*(x[idx] for x in env_state.phys))
+    with torch.no_grad():
+        mu, _ = agent._actor_sigma(agent.obs_rms.normalize(env_state.obs[idx]),
+                                   {k: v[idx] for k, v in agent.roll_state.items()})
+    act = mu.clamp(-1, 1)
+    print(f"  dr check on envs {idx.tolist()}: restitution "
+          f"{[round(float(x), 3) for x in knobs['restitution']]}, actor scale "
+          f"{[round(float(x), 3) for x in knobs['actor_scale']]}")
+    check_tick(env.model, env.sim_cfg, st,
+               env._pd_action_offset[None] + env._pd_action_scale[None] * act, knobs)
 
 
 def _llc_matches_checkpoint(agent):
@@ -1237,7 +1666,11 @@ def main():
     phase("hrl_check", lambda: check_hrl(hrl_player), t_start)
     del hrl_player
     torch.cuda.empty_cache()
-    records = phase("train", lambda: train_phase(card, rows), t_start)
+    records, fall_states = phase("train", lambda: train_phase(card, rows), t_start)
+    torch.cuda.empty_cache()
+    bf16_records = phase("train_bf16", lambda: train_bf16_phase(card, rows, fall_states),
+                         t_start)
+    del fall_states
     torch.cuda.empty_cache()
     strike_launches, strike_player = phase("strike", lambda: hrl_phase(
         card, STRIKE_ARGV + ["--test", "--checkpoint", STRIKE_HLC], 268, STRIKE_DECISIONS,
@@ -1251,10 +1684,16 @@ def main():
     perturb_launches, perturb_player = phase("perturb", lambda: perturb_phase(card), t_start)
     phase("perturb_check", lambda: perturb_check_phase(perturb_player), t_start)
     del perturb_player
+    torch.cuda.empty_cache()
+    dr_records, dr_agent, dr_state = phase("dr", lambda: dr_phase(card), t_start)
+    phase("dr_check", lambda: dr_check_phase(dr_agent, dr_state), t_start)
+    del dr_agent, dr_state
     signal.alarm(0)
     names = ("chol_forward2", "back_solve", "chol_forward")
     train_launches = {k: sum(r["launches"][k] for r in records) for k in names}
     hrl_train_launches = {k: sum(r["launches"][k] for r in hrl_records) for k in names}
+    train_bf16_launches = {k: sum(r["launches"][k] for r in bf16_records) for k in names}
+    dr_launches = {k: sum(r["launches"][k] for r in dr_records) for k in names}
     replaces = {"chol_forward2": "ase_tpu/ops/pallas_chol.py:122",
                 "back_solve": "ase_tpu/ops/pallas_chol.py:145",
                 "chol_forward": "ase_tpu/ops/pallas_chol.py:105"}
@@ -1265,6 +1704,7 @@ def main():
                     strike_launches=strike_launches[k],
                     hrl_train_launches=hrl_train_launches[k],
                     perturb_launches=perturb_launches[k],
+                    train_bf16_launches=train_bf16_launches[k], dr_launches=dr_launches[k],
                     on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")

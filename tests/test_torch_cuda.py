@@ -168,9 +168,10 @@ def test_prop_tick_on_the_card_matches_the_cpu(cuda, task):
     assert set(errs) >= {"prop_pos", "prop_quat"}
 
 
-def _small_ase_agent(device):
+def _small_ase_agent(device, mixed_precision=False):
     """An ASEAgent on 8 HumanoidAMPGetup envs with small widths (32-16,
-    latent 8): the config of tests/test_learning.py's TRAIN_CFG."""
+    latent 8): the config of tests/test_learning.py's TRAIN_CFG, in float32
+    or under mixed precision."""
     import yaml
 
     from ase_tpu_torch.envs import parse_task
@@ -189,7 +190,7 @@ def _small_ase_agent(device):
     cfg_train["params"]["seed"] = 7
     c = cfg_train["params"]["config"]
     c.update({"latent_dim": 8, "horizon_length": 4, "minibatch_size": 8,
-              "learning_rate": 2e-4})
+              "learning_rate": 2e-4, "mixed_precision": mixed_precision})
     return ASEAgent(parse_task("HumanoidAMPGetup", cfg, device=device), cfg_train)
 
 
@@ -216,7 +217,70 @@ def test_minibatch_update_on_the_card_matches_the_cpu(cuda, rows):
     chip_smoke.check_minibatch(_small_ase_agent(cuda), rows=rows, seed=rows)
 
 
-# The minibatch check itself, on the CPU (its "card" side on the CPU too).
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 256])
+def test_bf16_minibatch_update_on_the_card_matches_the_cpu(cuda, rows):
+    """One minibatch update under mixed precision (bfloat16 dense layers,
+    float32 parameters, heads and losses) from the same weights, batch and
+    draws on the card and on the CPU, the card on the CPU's relu gates
+    (its own may differ only within 2^-5 of a layer's largest
+    pre-activation), rows whose policy means differ left out of the actor
+    terms: policy means within 2^-6 of their largest, losses within 2^-8 of
+    max(1, |loss|), every gradient within 2^-5 of its tensor's largest (a
+    bias also within 2^-6 of its layer's sum of |cotangent|).
+    ``chip_smoke.check_minibatch_bf16`` applies the same check at the full
+    widths in the smoke run, where its docstring gives the rounding
+    argument."""
+    import chip_smoke
+
+    assert (chip_smoke.MB16_FWD_RTOL, chip_smoke.MB16_LOSS_RTOL, chip_smoke.MB16_GRAD_RTOL,
+            chip_smoke.MB16_ROW_RTOL, chip_smoke.MB16_GATE_RTOL) == \
+        (2.0 ** -6, 2.0 ** -8, 2.0 ** -5, 2.0 ** -6, 2.0 ** -5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    chip_smoke.check_minibatch_bf16(_small_ase_agent(cuda, mixed_precision=True), rows=rows,
+                                    seed=rows)
+
+
+@pytest.mark.cuda
+def test_dr_tick_on_the_card_matches_the_cpu(cuda):
+    """One engine tick at B = 8 with every domain-randomization knob away
+    from its base (friction per shape, PD gain and damping per dof, mass
+    per body, gravity, restitution 0.3-0.9 and actor scale 0.9-1.1), the
+    characters in their default pose falling at 0.5-1.5 m/s onto the plane
+    so that restitution bounces the feet: card vs CPU through
+    ``chip_smoke.check_tick`` at its tolerances."""
+    import chip_smoke
+    from ase_tpu_torch.physics import dynamics, engine, mjcf
+    from ase_tpu_torch.physics.solver import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    rng = np.random.default_rng(2)
+    B, nb, nd = 8, model.nb + model.num_props, model.nd
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, B).astype(np.float32))
+    zero = torch.zeros(B)
+    st = dynamics.default_state(model, B)
+    u = st.u.clone()
+    u[:, 2] = -torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32))
+    st = st._replace(root_pos=st.root_pos + torch.tensor([0.0, 0.0, 0.88]),
+                     root_quat=torch.stack([zero, zero, torch.sin(yaw / 2), torch.cos(yaw / 2)],
+                                           -1), u=u)
+
+    def uni(lo, hi, *shape):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    knobs = {"friction_scale": uni(0.05, 1.3, B, nb), "gain_scale": uni(0.5, 1.5, B, nd),
+             "mass_scale": uni(0.6, 1.4, B, model.nb), "gravity_scale": uni(0.5, 1.5, B),
+             "damping_scale": uni(0.1, 3.0, B, nd), "restitution": uni(0.3, 0.9, B),
+             "actor_scale": uni(0.9, 1.1, B)}
+    act = uni(-0.5, 0.5, B, 31)
+    chip_smoke.check_tick(model, engine.SimConfig(solver=SolverConfig(matvec_bf16=False)),
+                          st, act, knobs)
+
+
+# The minibatch checks themselves, on the CPU (their "card" side on the CPU too).
 
 @pytest.fixture(scope="module")
 def small_cpu_agent():
@@ -263,3 +327,38 @@ def test_minibatch_check_catches_a_wrong_gradient(small_cpu_agent, monkeypatch, 
         monkeypatch.setattr(chip_smoke, "_twin", scaled)
     with pytest.raises(chip_smoke.Failed, match="gradient of"):
         chip_smoke.check_minibatch(small_cpu_agent, rows=64, seed=64, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def small_bf16_cpu_agent():
+    torch.set_num_threads(1)
+    return _small_ase_agent(torch.device("cpu"), mixed_precision=True)
+
+
+def test_bf16_minibatch_check_passes_on_the_cpu(small_bf16_cpu_agent):
+    """With both sides on the CPU the bf16 check's sides run the same
+    roundings: no gate flips, losses and gradients equal."""
+    import chip_smoke
+
+    loss_err, grad_err, flips = chip_smoke.check_minibatch_bf16(small_bf16_cpu_agent, rows=64,
+                                                                seed=64, device="cpu")
+    assert (loss_err, grad_err, flips) == (0.0, 0.0, 0)
+
+
+def test_bf16_minibatch_check_catches_a_wrong_gradient(small_bf16_cpu_agent, monkeypatch):
+    """A second side whose discriminator-logit gradient is 10% off (four
+    bf16 ulps are 3.1%) fails the bf16 check."""
+    import chip_smoke
+
+    twin, made = chip_smoke._twin, []
+
+    def scaled(agent, device, z, dtype=None):
+        t = twin(agent, device, z, dtype)
+        made.append(t)
+        if len(made) > 4:      # the case, both sides' policy means and the CPU side stay right
+            t.network.disc_logits.weight.register_hook(lambda g: g * 1.1)
+        return t
+
+    monkeypatch.setattr(chip_smoke, "_twin", scaled)
+    with pytest.raises(chip_smoke.Failed, match="beyond their bounds: disc_logits.weight"):
+        chip_smoke.check_minibatch_bf16(small_bf16_cpu_agent, rows=64, seed=64, device="cpu")

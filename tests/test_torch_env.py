@@ -229,10 +229,14 @@ def test_fall_state_generation_runs_on_the_port(envs):
     assert float(fall.u.abs().max()) == 0.0
     assert bool(torch.isfinite(fall.root_pos).all())
     assert float(fall.root_pos[:, 2].max()) < 0.5          # lying on the ground
-    with pytest.raises(NotImplementedError):
-        cfg = getup_cfg()
-        cfg["task"]["randomize"] = True
-        tparse("HumanoidAMPGetup", cfg, device="cpu")
+    # domain randomization is ported (tests/test_torch_domain_rand.py):
+    # --randomize without a randomization_params block leaves it off, as in
+    # the reference, and with one turns it on
+    cfg = getup_cfg()
+    cfg["task"]["randomize"] = True
+    assert not tparse("HumanoidAMPGetup", copy.deepcopy(cfg), device="cpu")._dr.enabled
+    cfg["task"]["randomization_params"] = {"frequency": 2, "actions": {"range": [0.0, 0.02]}}
+    assert tparse("HumanoidAMPGetup", cfg, device="cpu")._dr.enabled
     with pytest.raises(NotImplementedError):
         cfg = getup_cfg()
         cfg["env"]["pdControl"] = False

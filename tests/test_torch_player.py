@@ -194,11 +194,20 @@ def test_player_actions_match_reference(cfgs, jax_net):
 
 def test_network_refuses_mixed_precision_until_ported(cfgs):
     """The reference runs bf16 matmuls when ``config.mixed_precision`` is
-    true (``_compute_dtype``); the port runs float32 only, so it refuses
-    the switch instead of ignoring it."""
+    true (``_compute_dtype``). The port, which once refused the switch,
+    now follows it: the shipped config builds a float32 network, and with
+    the switch every dense layer computes in bfloat16 over float32
+    parameters while the heads come out float32
+    (tests/test_torch_mixed_precision.py holds the values)."""
     params = copy.deepcopy(cfgs[1]["params"])
     assert params["config"]["mixed_precision"] is False   # the shipped config
-    assert isinstance(tnets.build_ase_network(params, OBS, ACT, AMP, LAT), tnets.ASENetwork)
+    net = tnets.build_ase_network(params, OBS, ACT, AMP, LAT)
+    assert {m.compute_dtype for m in net.modules() if isinstance(m, tnets.Dense)} == {None}
     params["config"]["mixed_precision"] = True
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        tnets.build_ase_network(params, OBS, ACT, AMP, LAT)
+    net = tnets.build_ase_network(params, OBS, ACT, AMP, LAT)
+    assert {m.compute_dtype for m in net.modules() if isinstance(m, tnets.Dense)} == \
+        {torch.bfloat16}
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    with torch.no_grad():
+        mu, sigma = net.eval_actor(torch.zeros(2, OBS), torch.ones(2, LAT) / LAT ** 0.5)
+    assert mu.dtype == sigma.dtype == torch.float32

@@ -2,7 +2,8 @@
 ase_tpu_torch.run`` without ``--test`` trains (here an AMP agent on
 HumanoidAMP, as tests/test_learning.py::test_amp_agent_trains does for the
 reference), writes its checkpoint, resumes from it, and refuses what it
-has not ported yet (HRL training: tests/test_torch_hrl_train.py)."""
+has not ported yet (HRL training: tests/test_torch_hrl_train.py; mixed
+precision: tests/test_torch_mixed_precision.py)."""
 
 import copy
 
@@ -92,8 +93,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="--llc_checkpoint"):
         run.build_agent(["--task", "HumanoidStrike", "--cfg_env", "humanoid_sword_shield_strike.yaml",
                          "--cfg_train", "train/rlg/hrl_humanoid.yaml"] + argv[6:] + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        run.build_agent(_argv(tmp_path, mixed_precision=True) + ["--device", "cpu"])
+    # mixed precision is ported: the agent builds with a bf16 network
+    # (tests/test_torch_mixed_precision.py trains and resumes one)
+    agent, _, _ = run.build_agent(_argv(tmp_path, mixed_precision=True) + ["--device", "cpu"])
+    assert agent.network.mu.compute_dtype == torch.bfloat16
     if not torch.cuda.is_available():     # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run.build_agent(argv)
