@@ -5,7 +5,10 @@ the port's tests hold each step against the JAX env. ``EnvState`` is a plain
 dataclass of per-env tensors (leading dim B) on the env's device. Random
 draws come from the env's ``torch.Generator`` through ``_draw_reset``, one
 call per reset pass, and ``_draw_dr_noise``, so a caller can substitute its
-own numbers.
+own numbers. In data-parallel training (``split_draws``) those per-env
+draws come from a generator of the rank's own, and the draws that feed the
+agent's replicated buffers (the AMP demo windows) from a generator every
+rank shares.
 
 Domain randomization (``task.randomize`` with a ``randomization_params``
 block; ``envs/domain_rand.py``): a reset pass redraws the knobs of the envs
@@ -160,6 +163,13 @@ class Humanoid:
         self._initial_root_pos = torch.tensor([0.0, 0.0, 0.89], device=self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(cfg.get("seed", 0)))
+        self.replicated_gen = self.gen
+
+    def split_draws(self, seed: int, replicated: torch.Generator) -> None:
+        """Data-parallel training: per-env draws from ``gen`` reseeded with
+        ``seed`` (the rank's), replicated ones from ``replicated``."""
+        self.gen.manual_seed(seed)
+        self.replicated_gen = replicated
 
     def _build_model(self, asset_path: str):
         """The physics model: the asset's articulation (tasks with props

@@ -86,9 +86,11 @@ class HumanoidAMP(Humanoid):
     # -- demo fetch (humanoid_amp.py:105-124) -------------------------------------
 
     def _draw_demo(self, n: int) -> Dict[str, torch.Tensor]:
-        """Random numbers one demo fetch of ``n`` rows consumes."""
-        return {"motion_ids": ml.sample_motions(self._motion_lib, self.gen, n),
-                "motion_phase": torch.rand(n, generator=self.gen, device=self.device)}
+        """Random numbers one demo fetch of ``n`` rows consumes (replicated:
+        the demo buffer is the same on every rank)."""
+        gen = self.replicated_gen
+        return {"motion_ids": ml.sample_motions(self._motion_lib, gen, n),
+                "motion_phase": torch.rand(n, generator=gen, device=self.device)}
 
     def fetch_amp_obs_demo(self, n: int) -> torch.Tensor:
         """(n, amp_obs_size) AMP windows of random clips at random times."""

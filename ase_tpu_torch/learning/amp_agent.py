@@ -34,7 +34,7 @@ DEMO_CHUNK = 16384   # rows per demo fetch while the demo buffer fills
 
 
 class AMPAgent(CommonAgent):
-    def __init__(self, env, cfg_train, output_dir: str = "output"):
+    def __init__(self, env, cfg_train, output_dir: str = "output", mesh=None):
         config = cfg_train["params"]["config"]
         self._task_reward_w = float(config["task_reward_w"])
         self._disc_reward_w = float(config["disc_reward_w"])
@@ -52,7 +52,7 @@ class AMPAgent(CommonAgent):
         self._amp_replay_buffer_size = int(config["amp_replay_buffer_size"])
         self._amp_replay_keep_prob = float(config["amp_replay_keep_prob"])
         self.amp_obs_dim = env.amp_obs_size()
-        super().__init__(env, cfg_train, output_dir)
+        super().__init__(env, cfg_train, output_dir, mesh)
         self.amp_rms = RunningMeanStd((self.amp_obs_dim,)).to(self.device)
         self._rand_action_probs = torch.as_tensor(self._build_rand_action_probs(),
                                                   device=self.device)
@@ -70,14 +70,16 @@ class AMPAgent(CommonAgent):
     # -- ε-greedy ------------------------------------------------------------------
 
     def _build_rand_action_probs(self) -> np.ndarray:
-        n = self.num_actors
+        """The probabilities of this rank's rows of the global envs."""
+        n = self.num_actors * self.world
         env_ids = np.arange(n, dtype=np.float32)
         probs = 1.0 - np.exp(10.0 * (env_ids / (n - 1.0) - 1.0))
         probs[0] = 1.0
         probs[-1] = 0.0
         if not self._enable_eps_greedy:
             probs[:] = 1.0
-        return probs.astype(np.float32)
+        return probs.astype(np.float32)[self.rank * self.num_actors:
+                                        (self.rank + 1) * self.num_actors]
 
     def _rand_action_mask(self, u_mask):
         return (u_mask < self._rand_action_probs).to(torch.float32)
@@ -87,15 +89,15 @@ class AMPAgent(CommonAgent):
     def _draw_cursor(self, buffer: ReplayBuffer, n: int) -> Dict[str, torch.Tensor]:
         """A buffer's cursor draw: n uniform indices below its ``limit()``
         and a fresh permutation of its capacity."""
-        u = torch.rand(n, generator=self.gen, device=self.device)
+        u = torch.rand(n, generator=self.replicated_gen, device=self.device)
         limit = buffer.limit()
         idx = torch.minimum((u * limit).long(), limit - 1)
-        perm = torch.randperm(buffer.capacity, generator=self.gen, device=self.device)
+        perm = torch.randperm(buffer.capacity, generator=self.replicated_gen, device=self.device)
         return {"uniform_idx": idx, "new_perm": perm}
 
     def _draw_replay_keep(self, n: int) -> torch.Tensor:
         """Uniforms that decide which rollout rows the replay buffer keeps."""
-        return torch.rand(n, generator=self.gen, device=self.device)
+        return torch.rand(n, generator=self.replicated_gen, device=self.device)
 
     # -- train state -----------------------------------------------------------------
 
@@ -111,6 +113,10 @@ class AMPAgent(CommonAgent):
         leaves = super()._weight_leaves()
         leaves.update(checkpoint.rms_leaves(self.amp_rms, ".extra['amp_rms']"))
         return leaves
+
+    def _normalizer_tensors(self):
+        return super()._normalizer_tensors() + [
+            getattr(self.amp_rms, f) for f in ("mean", "var", "count")]
 
     def ckpt_leaves(self):
         leaves = super().ckpt_leaves()
@@ -228,23 +234,26 @@ class AMPAgent(CommonAgent):
         (demo_grad,) = torch.autograd.grad(demo_logits, demo_obs,
                                            grad_outputs=torch.ones_like(demo_logits),
                                            create_graph=True)
-        loss_agent = F.binary_cross_entropy_with_logits(agent_logits, torch.zeros_like(agent_logits))
-        loss_demo = F.binary_cross_entropy_with_logits(demo_logits, torch.ones_like(demo_logits))
+        bce = F.binary_cross_entropy_with_logits
+        loss_agent = self._row_mean(bce(agent_logits, torch.zeros_like(agent_logits),
+                                        reduction="none"))
+        loss_demo = self._row_mean(bce(demo_logits, torch.ones_like(demo_logits),
+                                       reduction="none"))
         loss = 0.5 * (loss_agent + loss_demo)
-        logit_loss = torch.sum(torch.square(self.network.disc_logits.weight))
+        logit_loss = self._param_share * torch.sum(torch.square(self.network.disc_logits.weight))
         loss = loss + self._disc_logit_reg * logit_loss
-        grad_pen = torch.mean(torch.sum(torch.square(demo_grad), dim=-1))
+        grad_pen = self._row_mean(torch.sum(torch.square(demo_grad), dim=-1))
         loss = loss + self._disc_grad_penalty * grad_pen
         if self._disc_weight_decay != 0:
-            loss = loss + self._disc_weight_decay * sum(
+            loss = loss + self._param_share * self._disc_weight_decay * sum(
                 torch.sum(torch.square(w)) for w in self._disc_kernels())
         with torch.no_grad():
             info = {"disc_loss": loss.detach(), "disc_grad_penalty": grad_pen.detach(),
                     "disc_logit_loss": logit_loss.detach(),
-                    "disc_agent_acc": torch.mean((agent_logits < 0).to(torch.float32)),
-                    "disc_demo_acc": torch.mean((demo_logits > 0).to(torch.float32)),
-                    "disc_agent_logit": torch.mean(agent_logits),
-                    "disc_demo_logit": torch.mean(demo_logits)}
+                    "disc_agent_acc": self._row_mean((agent_logits < 0).to(torch.float32)),
+                    "disc_demo_acc": self._row_mean((demo_logits > 0).to(torch.float32)),
+                    "disc_agent_logit": self._row_mean(agent_logits),
+                    "disc_demo_logit": self._row_mean(demo_logits)}
         return loss, info
 
     def _extra_loss(self, loss, mb, info):

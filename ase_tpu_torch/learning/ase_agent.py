@@ -16,13 +16,12 @@ from typing import Dict
 
 import torch
 
-from ase_tpu_torch.learning import checkpoint
 from ase_tpu_torch.learning.amp_agent import AMPAgent
 from ase_tpu_torch.models import networks
 
 
 class ASEAgent(AMPAgent):
-    def __init__(self, env, cfg_train, output_dir: str = "output"):
+    def __init__(self, env, cfg_train, output_dir: str = "output", mesh=None):
         config = cfg_train["params"]["config"]
         self._latent_dim = int(config["latent_dim"])
         self._latent_steps_min = int(config.get("latent_steps_min", 1))
@@ -34,7 +33,7 @@ class ASEAgent(AMPAgent):
         self._enc_reward_scale = float(config.get("enc_reward_scale", 1.0))
         self._enc_grad_penalty = float(config.get("enc_grad_penalty", 0.0))
         self._enc_reward_w = float(config["enc_reward_w"])
-        super().__init__(env, cfg_train, output_dir)
+        super().__init__(env, cfg_train, output_dir, mesh)
 
     def _build_network(self):
         return networks.build_ase_network(self.cfg_train["params"], self.obs_dim,
@@ -43,7 +42,7 @@ class ASEAgent(AMPAgent):
     def ckpt_leaves(self):
         leaves = super().ckpt_leaves()
         for k in ("ase_latents", "latent_reset_steps"):
-            leaves[f".extra['{k}']"] = checkpoint.slot_leaf(self.roll_state, k)
+            leaves[f".extra['{k}']"] = self._env_rows_leaf(self.roll_state, k)
         return leaves
 
     def _actor_sigma(self, obs_n, roll):
@@ -69,7 +68,8 @@ class ASEAgent(AMPAgent):
 
     def _draw_diversity_latents(self, n: int) -> torch.Tensor:
         """Raw normals for one minibatch's diversity latents, (n, latent_dim)."""
-        return torch.randn(n, self._latent_dim, generator=self.gen, device=self.device)
+        return torch.randn(n, self._latent_dim, generator=self.replicated_gen,
+                           device=self.device)
 
     def _init_rollout_carry(self) -> Dict[str, torch.Tensor]:
         return {
@@ -136,36 +136,35 @@ class ASEAgent(AMPAgent):
         loss, info = super()._extra_loss(loss, mb, info)
         net = self.network
 
-        # encoder loss on the AMP minibatch
-        enc_latents = mb["ase_latents"][:self._amp_minibatch_size]
+        # encoder loss on the AMP minibatch (its rows lead the minibatch's)
         amp_obs_n = mb["amp_obs_n"]
+        enc_latents = mb["ase_latents"][:amp_obs_n.shape[0]]
         if self._enc_grad_penalty != 0:
             amp_obs_n = amp_obs_n.detach().requires_grad_(True)
         err = self._calc_enc_error(net.eval_enc(amp_obs_n), enc_latents)
-        enc_loss = torch.mean(err)
+        enc_loss = self._row_mean(err)
         if self._enc_weight_decay != 0:
-            enc_loss = enc_loss + self._enc_weight_decay * sum(
+            enc_loss = enc_loss + self._param_share * self._enc_weight_decay * sum(
                 torch.sum(torch.square(w)) for w in self._enc_kernels())
         if self._enc_grad_penalty != 0:
             (g,) = torch.autograd.grad(err, amp_obs_n, grad_outputs=torch.ones_like(err),
                                        create_graph=True)
-            enc_loss = enc_loss + self._enc_grad_penalty * torch.mean(
+            enc_loss = enc_loss + self._enc_grad_penalty * self._row_mean(
                 torch.sum(torch.square(g), dim=-1))
         info["enc_loss"] = enc_loss.detach()
         loss = loss + self._enc_coef * enc_loss
 
         # diversity: different latents should give different actions
         if self._amp_diversity_bonus != 0:
-            n = mb["obs_n"].shape[0]
-            new_z = networks.normalize_latents(self._draw_diversity_latents(n))
+            n = mb["obs_n"].shape[0] * self.world        # drawn for the whole minibatch
+            new_z = networks.normalize_latents(self._share_rows(self._draw_diversity_latents(n)))
             mu_new, _ = net.eval_actor(mb["obs_n"], new_z)
             a_diff = torch.mean(torch.square(torch.clamp(info["mu"], -1, 1)
                                              - torch.clamp(mu_new, -1, 1)), dim=-1)
             z_diff = 0.5 - 0.5 * torch.sum(new_z * mb["ase_latents"], dim=-1)
             bonus = a_diff / (z_diff + 1e-5)
             div_loss = torch.square(self._amp_diversity_tar - bonus)
-            rmask = mb["rand_action_mask"]
-            div_loss = torch.sum(rmask * div_loss) / torch.clamp(rmask.sum(), min=1.0)
+            div_loss = torch.sum(mb["rand_action_mask"] * div_loss) / self._mask_count(mb)
             info["diversity_loss"] = div_loss.detach()
             loss = loss + self._amp_diversity_bonus * div_loss
         return loss, info

@@ -83,6 +83,26 @@ def slot_leaf(box, name: str, transpose: bool = False) -> Leaf:
     return Leaf(shape, get, set_)
 
 
+def rows_leaf(box: dict, name: str, mesh) -> Leaf:
+    """A per-env tensor ``box[name]`` holding one rank's envs of a
+    data-parallel run, as the leaf of all of them: reading gathers every
+    rank's rows in rank order (a collective: every rank reads), setting
+    keeps this rank's."""
+    t0 = box[name]
+    n = t0.shape[0]
+    disk = _DISK_DTYPE[t0.dtype]
+
+    def get():
+        return mesh.all_gather_rows(box[name]).cpu().numpy().astype(disk, copy=False)
+
+    def set_(a):
+        t = box[name]
+        rows = _contiguous(a)[mesh.rank * n:(mesh.rank + 1) * n]
+        box[name] = torch.as_tensor(rows).to(t.device, t.dtype)
+
+    return Leaf((n * mesh.world,) + tuple(t0.shape[1:]), get, set_)
+
+
 def number_leaf(obj, name: str, dtype) -> Leaf:
     """A Python number attribute, stored as a 0-d array of ``dtype``."""
     kind = type(getattr(obj, name))
@@ -198,11 +218,15 @@ def _npz(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save(path: str, leaves: Mapping[str, Leaf], exclude: tuple = ()) -> str:
+def save(path: str, leaves: Mapping[str, Leaf], exclude: tuple = (), write: bool = True) -> str:
     """Write the leaves whose key contains none of ``exclude`` to an npz
-    (``.npz`` is appended when missing); returns the file's path."""
+    (``.npz`` is appended when missing); returns the file's path. With
+    ``write`` false the leaves are read (a data-parallel rank's part of
+    the gathers) and nothing is written."""
     path = _npz(path)
     arrays = {k: leaf.get() for k, leaf in leaves.items() if not any(x in k for x in exclude)}
+    if not write:
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
     return path

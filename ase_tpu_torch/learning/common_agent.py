@@ -23,6 +23,24 @@ included), ``{name}_best.ckpt.npz`` when the windowed game reward beats
 its best after ``save_best_after`` epochs, and ``{name}.ckpt.npz`` at the
 end, all under ``output_dir``. Unless ``save_buffers`` is set, checkpoints
 leave out the reconstructible demo and replay buffers.
+
+Data-parallel training (``mesh``, a ``parallel.mesh.Mesh`` of W ranks)
+runs the reference's global program, up to float32 reduction order: rank r
+steps env rows [r B/W, (r + 1) B/W) of the global B envs, and ``batch_size``
+and the minibatches are global. Per-env draws (actions, latents, the env's
+resets) come from ``gen``, seeded per rank; replicated draws (minibatch
+permutations, buffer cursors, replay keeps, diversity latents, the env's
+demo windows) from ``replicated_gen``, seeded alike on every rank and
+touched only by code every rank runs alike (one process: the same
+generator). After the rollout the batch is gathered into the global (T, B)
+layout and the dataset, the normalizers, the buffers and the game meters
+are computed on it by every rank. Each minibatch's normalizer updates run
+on all its rows; each rank then takes the gradient of every W-th row
+(``_row_mean``: its share of the global means; whole-network terms count on
+rank 0 only) and one all-reduce sums gradients and scalar infos, so Adam
+steps alike everywhere and the replicas stay bit-equal, which each epoch
+checks. Rank 0 alone prints the epoch lines and writes the checkpoints;
+per-env leaves of a checkpoint are gathered, so it resumes at any W.
 """
 
 from __future__ import annotations
@@ -40,13 +58,16 @@ from ase_tpu_torch.learning.running_mean_std import RunningMeanStd
 
 
 class CommonAgent:
-    def __init__(self, env, cfg_train: Dict[str, Any], output_dir: str = "output"):
+    def __init__(self, env, cfg_train: Dict[str, Any], output_dir: str = "output",
+                 mesh=None):
         self.env = env
         self.output_dir = output_dir
         self.cfg_train = cfg_train
         config = self.config = cfg_train["params"]["config"]
         self.device = env.device
-        self.num_actors = env.num_envs
+        self.mesh = mesh
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
+        self.num_actors = env.num_envs          # this rank's envs
         self.horizon_length = int(config["horizon_length"])
         self.minibatch_size = int(config["minibatch_size"])
         self.mini_epochs = int(config["mini_epochs"])
@@ -71,19 +92,38 @@ class CommonAgent:
         self._save_intermediate = bool(config.get("save_intermediate", False))
         self._best_mean_rewards = -1e9
 
-        self.batch_size = self.horizon_length * self.num_actors
+        self.batch_size = self.horizon_length * self.num_actors * self.world
         self.num_minibatches = self.batch_size // self.minibatch_size
+        # the whole-network loss terms (weight decay, logit regularizer): all
+        # of them on rank 0, none elsewhere, so the summed gradient has them once
+        self._param_share = 1.0 if self.rank == 0 else 0.0
 
         self.obs_dim = env.get_obs_size()
         self.action_dim = self._actions_num()
         self.obs_rms = RunningMeanStd((self.obs_dim,)).to(self.device)
         self.value_rms = RunningMeanStd((1,)).to(self.device)
+        seed = int(cfg_train["params"].get("seed", 0)) + 1
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(cfg_train["params"].get("seed", 0)) + 1)
+        self.gen.manual_seed(seed)
+        self.replicated_gen = self.gen
         self.network = self._build_network().to(self.device)
         self.optimizer = None
         self.epoch = 0
         self.frame = 0
+        if mesh is not None:
+            self._join(mesh, seed)
+
+    def _join(self, mesh, seed: int) -> None:
+        """Split the draws per rank. The replicas start equal: the initial
+        weights come from the config's seed, which every rank shares."""
+        for n in (self.minibatch_size, *self._minibatch_rows().values()):
+            if n % self.world:
+                raise ValueError(f"minibatch rows {n} do not split over {self.world} ranks")
+        self.gen.manual_seed(mesh.rank_seed(seed))
+        self.replicated_gen = torch.Generator(device=self.device)
+        self.replicated_gen.manual_seed(mesh.replicated_seed(seed))
+        self.env.split_draws(mesh.rank_seed(int(self.env.cfg.get("seed", 0))),
+                             self.replicated_gen)
 
     # -- overridables -----------------------------------------------------------
 
@@ -146,8 +186,8 @@ class CommonAgent:
                 "u_mask": torch.rand(n, generator=self.gen, device=self.device)}
 
     def _draw_minibatch_perm(self) -> torch.Tensor:
-        """One permutation of the batch per mini-epoch."""
-        return torch.randperm(self.batch_size, generator=self.gen, device=self.device)
+        """One permutation of the (global) batch per mini-epoch."""
+        return torch.randperm(self.batch_size, generator=self.replicated_gen, device=self.device)
 
     # -- train state --------------------------------------------------------------
 
@@ -160,7 +200,7 @@ class CommonAgent:
         if self.batch_size % self.minibatch_size != 0:
             raise ValueError(f"batch {self.batch_size} % minibatch {self.minibatch_size} != 0")
         self.optimizer = self._make_optimizer()
-        B, K, dev = self.num_actors, self.games_to_track, self.device
+        B, K, dev = self.num_actors * self.world, self.games_to_track, self.device
         self.meters = {
             "cur_rewards": torch.zeros(B, device=dev),
             "cur_lengths": torch.zeros(B, device=dev),
@@ -211,8 +251,15 @@ class CommonAgent:
             leaves[f".extra['{k}']"] = checkpoint.slot_leaf(self.meters, k)
         leaves[".extra['best_mean_rewards']"] = checkpoint.number_leaf(
             self, "_best_mean_rewards", np.float32)
-        leaves[checkpoint.GENERATOR_KEY] = checkpoint.generator_leaf(self.gen)
+        leaves[checkpoint.GENERATOR_KEY] = checkpoint.generator_leaf(self.replicated_gen)
         return leaves
+
+    def _env_rows_leaf(self, box, name: str) -> checkpoint.Leaf:
+        """A per-env tensor ``box[name]`` of this rank's envs as the leaf of
+        all B envs (gathered on every rank)."""
+        if self.mesh is None:
+            return checkpoint.slot_leaf(box, name)
+        return checkpoint.rows_leaf(box, name, self.mesh)
 
     def _transient_extra(self) -> tuple:
         """Key substrings of reconstructible state left out of checkpoints."""
@@ -225,9 +272,11 @@ class CommonAgent:
 
     def save(self, path: str, exclude: Optional[tuple] = None) -> str:
         """Write the train state (less ``_ckpt_exclude`` unless ``exclude``
-        is given) to ``path`` + ``.npz``; returns the file's path."""
+        is given) to ``path`` + ``.npz``; returns the file's path. Every
+        rank calls it (per-env leaves are gathered); rank 0 writes."""
         return checkpoint.save(path, self.ckpt_leaves(),
-                               self._ckpt_exclude() if exclude is None else exclude)
+                               self._ckpt_exclude() if exclude is None else exclude,
+                               write=self.rank == 0)
 
     def restore(self, path: str) -> None:
         """Weights and normalizers from a checkpoint of either package, at
@@ -260,13 +309,29 @@ class CommonAgent:
     def _entropy(log_sigma):
         return torch.sum(log_sigma + 0.5 * math.log(2.0 * math.pi * math.e), dim=-1)
 
-    @staticmethod
-    def _policy_kl(mu, log_sigma, old_mu, old_log_sigma):
+    def _policy_kl(self, mu, log_sigma, old_mu, old_log_sigma):
         """Analytic diagonal-gaussian KL (rl_games torch_ext.policy_kl)."""
         s, so = torch.exp(log_sigma), torch.exp(old_log_sigma)
         kl = (old_log_sigma - log_sigma
               + (torch.square(so) + torch.square(mu - old_mu)) / (2.0 * torch.square(s)) - 0.5)
-        return torch.mean(torch.sum(kl, dim=-1))
+        return self._row_mean(torch.sum(kl, dim=-1))
+
+    def _row_mean(self, x):
+        """The mean of ``x`` over a minibatch's rows; on one of W ranks,
+        which holds every W-th row, its share: its sum over all ranks' count."""
+        if self.world == 1:
+            return torch.mean(x)
+        return torch.sum(x) / (x.numel() * self.world)
+
+    def _mask_count(self, mb):
+        """The minibatch's ε-greedy mask count (all ranks' rows), at least 1."""
+        if self.world == 1:
+            return torch.clamp(mb["rand_action_mask"].sum(), min=1.0)
+        return torch.clamp(mb["rand_action_mask_sum"], min=1.0)
+
+    def _share_rows(self, x):
+        """This rank's rows of a minibatch-row tensor: every W-th from its rank."""
+        return x if self.world == 1 else x[self.rank::self.world]
 
     def _update_game_meters(self, rewards, dones, successes=None) -> None:
         """Windowed episode meters over the last ``games_to_track`` finished
@@ -317,7 +382,6 @@ class CommonAgent:
             env_state, rewards, infos = self._env_step(env_state, actions)
             dones = env_state.reset_buf.to(torch.float32)
             terminated = env_state.terminate_buf.to(torch.float32)
-            self._update_game_meters(rewards, dones, env_state.aux.get("successes"))
 
             next_obs_n = (self.obs_rms.normalize(env_state.obs) if self.normalize_input
                           else env_state.obs)
@@ -326,6 +390,8 @@ class CommonAgent:
             rec = {"obs": obs, "actions": actions, "mu": mu, "sigma": log_sigma,
                    "neglogp": neglogp, "values": value, "rewards": rewards[:, None],
                    "dones": dones, "next_values": next_value, "rand_action_mask": rand_mask}
+            if "successes" in env_state.aux:
+                rec["successes"] = env_state.aux["successes"]
             rec = self._record_step(env_state, roll, rec, infos)
             for k, v in rec.items():
                 if k not in batch:
@@ -353,10 +419,8 @@ class CommonAgent:
         return (advantages - mean) / (torch.sqrt(var) + 1e-8)
 
     def _prepare_dataset(self, batch):
-        T, B = self.horizon_length, self.num_actors
-
         def flat(x):
-            return x.reshape((T * B,) + tuple(x.shape[2:]))
+            return x.reshape((self.batch_size,) + tuple(x.shape[2:]))
 
         values, returns = flat(batch["values"]), flat(batch["returns"])
         advantages = torch.sum(returns - values, dim=1)
@@ -374,10 +438,19 @@ class CommonAgent:
                    "sigma": flat(batch["sigma"]), "rand_action_mask": rmask}
         return self._prepare_extra_dataset(batch, dataset)
 
+    def _gather_envs(self, x):
+        """(T, B/W, ...) of this rank's envs -> (T, B, ...) of all, rank-major."""
+        return self.mesh.all_gather_rows(x.transpose(0, 1).contiguous()).transpose(0, 1)
+
     @torch.no_grad()
     def _rollout_phase(self, env_state):
         env_state, roll, batch = self._rollout(env_state)
         self._post_rollout(roll)
+        if self.mesh is not None:
+            batch = {k: self._gather_envs(v) for k, v in batch.items()}
+        for t in range(self.horizon_length):     # the game meters, in step order
+            self._update_game_meters(batch["rewards"][t, :, 0], batch["dones"][t],
+                                     batch["successes"][t] if "successes" in batch else None)
         batch = self._process_rewards(batch)
         batch["returns"] = self._discount_values(
             batch["dones"], batch["values"], batch["rewards"], batch["next_values"]) + batch["values"]
@@ -419,11 +492,11 @@ class CommonAgent:
         entropy = self._entropy(log_sigma)
 
         rmask = mb["rand_action_mask"]
-        rsum = torch.clamp(rmask.sum(), min=1.0)
+        rsum = self._mask_count(mb)
         a_loss_m = torch.sum(rmask * a_loss) / rsum
         b_loss_m = torch.sum(rmask * b_loss) / rsum
         ent_m = torch.sum(rmask * entropy) / rsum
-        c_loss_m = torch.mean(c_loss)
+        c_loss_m = self._row_mean(c_loss)
         loss = (a_loss_m + self.critic_coef * c_loss_m - self.entropy_coef * ent_m
                 + self.bounds_loss_coef * b_loss_m)
         info = {"a_loss": a_loss_m, "c_loss": c_loss_m, "b_loss": b_loss_m, "entropy": ent_m,
@@ -456,22 +529,66 @@ class CommonAgent:
 
     def _update_minibatch(self, mb) -> Dict[str, torch.Tensor]:
         """One minibatch: normalizer updates, loss, backward, Adam step.
-        Returns the scalar infos, the policy KL and the loss (on device)."""
+        Returns the scalar infos, the policy KL and the loss (on device).
+        On one of several ranks the normalizers update on every row, the
+        loss takes this rank's rows, and the gradients and infos are summed
+        over the ranks before the step."""
         mb = self._preproc_minibatch(mb)
+        if self.mesh is not None:
+            count = mb["rand_action_mask"].sum()
+            mb = {k: self._share_rows(v) for k, v in mb.items()}
+            mb["rand_action_mask_sum"] = count
         loss, info = self._loss(mb)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if self.truncate_grads:
-            torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_norm)
-        self.optimizer.step()
         with torch.no_grad():
             kl = self._policy_kl(info["mu"], info["sigma"], mb["mu"], mb["sigma"])
-        if self.lr_schedule == "adaptive":
-            self._adapt_lr(float(kl))
         metrics = {k: v.detach() for k, v in info.items() if v.dim() == 0}
         metrics["kl"] = kl
         metrics["loss"] = loss.detach()
+        if self.mesh is not None:
+            metrics = self._all_reduce_grads(metrics)
+        if self.truncate_grads:
+            torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_norm)
+        self.optimizer.step()
+        if self.lr_schedule == "adaptive":
+            self._adapt_lr(float(metrics["kl"]))
         return metrics
+
+    @torch.no_grad()
+    def _all_reduce_grads(self, metrics):
+        """Sum the gradients and the scalar ``metrics`` over the ranks in
+        one all-reduce; returns the summed metrics."""
+        params = [p for p in self.network.parameters() if p.grad is not None]
+        names = sorted(metrics)
+        flat = self.mesh.all_reduce_sum(torch.cat(
+            [p.grad.reshape(-1) for p in params]
+            + [torch.stack([metrics[k].to(torch.float32) for k in names])]))
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+            at += p.numel()
+        return dict(zip(names, flat[at:]))
+
+    @torch.no_grad()
+    def _check_replicas(self) -> None:
+        """Raise unless every rank holds bit-equal weights and normalizers."""
+        sums = self.mesh.all_gather_rows(self.replica_checksum()[None])
+        if not bool((sums == sums[0]).all()):
+            raise RuntimeError(f"the replicas diverged: checksums {sums.tolist()} by rank")
+
+    @torch.no_grad()
+    def replica_checksum(self) -> torch.Tensor:
+        """(2,) int64 checksum of the bits of the weights and normalizers."""
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in
+                          list(self.network.parameters()) + list(self._normalizer_tensors())])
+        bits = flat.view(torch.int32).to(torch.int64)
+        weights = torch.arange(bits.numel(), device=bits.device) % 127 + 1
+        return torch.stack([bits.sum(), (bits * weights).sum()])
+
+    def _normalizer_tensors(self):
+        return [getattr(rms, f) for rms in (self.obs_rms, self.value_rms)
+                for f in ("mean", "var", "count")]
 
     def _update_phase(self, dataset) -> Dict[str, torch.Tensor]:
         infos = []
@@ -508,6 +625,8 @@ class CommonAgent:
         t1 = time.time()
         metrics = self._update_phase(dataset)
         metrics.update(rmetrics)
+        if self.mesh is not None:
+            self._check_replicas()
         names = sorted(metrics)
         values = torch.stack([metrics[k].to(torch.float32) for k in names]).cpu().tolist()
         t2 = time.time()
@@ -525,11 +644,14 @@ class CommonAgent:
         ``on_epoch(record)`` after each. Sets up the train and env states
         unless ``env_state`` is given; ``restore_path`` resumes from a
         checkpoint first (the env starts fresh). Returns the env state and
-        the last record."""
+        the last record. On several ranks every rank calls it; rank 0 alone
+        prints the epoch lines and writes the checkpoints (``run.main``
+        gives it alone a writer)."""
         max_epochs = max_epochs or self.max_epochs
-        print(f"training {type(self).__name__} for {max_epochs} epochs on {self.device}: "
-              f"{self.num_actors} envs x {self.horizon_length} steps; checkpoints under "
-              f"{self.output_dir}", flush=True)
+        ranks = f" (rank {self.rank} of {self.world})" if self.mesh is not None else ""
+        print(f"training {type(self).__name__} for {max_epochs} epochs on {self.device}"
+              f"{ranks}: {self.num_actors} envs x {self.horizon_length} steps; checkpoints "
+              f"under {self.output_dir}", flush=True)
         if env_state is None:
             env_state = self.setup_training()
         if restore_path:
@@ -543,8 +665,9 @@ class CommonAgent:
         while self.epoch < max_epochs:
             env_state, record = self.train_epoch(env_state)
             epoch, m = record["epoch"], record["metrics"]
-            msg = " ".join(f"{k}:{v:.4f}" for k, v in m.items())
-            print(f"epoch {epoch} fps:{record['env_steps_per_s']:.0f} {msg}", flush=True)
+            if self.rank == 0:
+                msg = " ".join(f"{k}:{v:.4f}" for k, v in m.items())
+                print(f"epoch {epoch} fps:{record['env_steps_per_s']:.0f} {msg}", flush=True)
             if writer is not None:
                 for k, v in m.items():
                     writer.add_scalar(f"train/{k}", v, self.frame)
@@ -560,5 +683,6 @@ class CommonAgent:
             if on_epoch is not None:
                 on_epoch(record)
         saved = self.save(path())
-        print(f"training done in {time.time() - start:.1f}s; saved {saved}", flush=True)
+        print(f"training done in {time.time() - start:.1f}s"
+              + (f"; saved {saved}" if self.rank == 0 else ""), flush=True)
         return env_state, record

@@ -43,7 +43,7 @@ def _resolve(path: str) -> str:
 
 
 class HRLAgent(CommonAgent):
-    def __init__(self, env, cfg_train, output_dir: str = "output"):
+    def __init__(self, env, cfg_train, output_dir: str = "output", mesh=None):
         config = cfg_train["params"]["config"]
         with open(_resolve(config["llc_config"]), "r") as f:
             self._llc_params_cfg = yaml.safe_load(f)["params"]
@@ -54,7 +54,7 @@ class HRLAgent(CommonAgent):
         self._disc_reward_w = float(config["disc_reward_w"])
         self._disc_reward_scale = float(llc_config.get("disc_reward_scale", 2.0))
         self._task_size = env.get_task_obs_size()
-        super().__init__(env, cfg_train, output_dir)
+        super().__init__(env, cfg_train, output_dir, mesh)
 
         self._llc_obs_dim = self.obs_dim - self._task_size
         self._amp_obs_dim = env.amp_obs_size()

@@ -3,23 +3,33 @@
 All clips are concatenated into flat frame-major tensors once at load time;
 ``get_motion_state`` blends two packed frame rows per query (the
 reference's default packed path). Clips are read with numpy from the
-``.npy`` files; the reference's native ``.msc`` cache is an optional fast
-path that is not ported yet. Randomness comes from explicit
+``.npy`` files once; ``load_motion_lib`` then writes the dataset's arrays to
+a ``.msc`` cache (the reference's format, ``native/motion_cache.cpp``,
+under ``~/.cache/ase_tpu_torch``) and later loads memory-map it. The cache
+is keyed by the clip paths, their mtimes and weights, and the skeleton's
+dof layout, so an edited clip misses. Randomness comes from explicit
 ``torch.Generator``s.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import yaml
 
+from ase_tpu_torch import native
 from ase_tpu_torch.motion import skeleton as sk
 from ase_tpu_torch.ops import quat as rot
+
+_CACHE_FIELDS = ("gts", "grs", "lrs", "gvs", "gavs", "dvs",
+                 "length_starts", "lengths", "num_frames", "dt", "weights")
+# load_motion_lib's cache lookups since import (or the caller's reset)
+CACHE = {"hits": 0, "misses": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,15 +204,59 @@ def load_motion_npy(path: str):
     return tree, rotation, root_translation, fps, gv, gav
 
 
-def load_motion_lib(motion_file: str, dof_body_ids: Sequence[int],
-                    dof_offsets: Sequence[int], key_body_ids: Sequence[int],
-                    device="cuda") -> MotionLib:
-    files, weights = _fetch_motion_files(motion_file)
-    num_dof = int(dof_offsets[-1])
+def _cache_path(motion_file: str, files, weights, dof_body_ids, dof_offsets) -> str:
+    """The dataset's cache file: its name and a hash of every clip's path,
+    mtime and weight and of the dof layout."""
+    h = hashlib.sha1()
+    for f, w in zip(files, weights):
+        try:
+            h.update(f"{f}:{os.path.getmtime(f)}:{w};".encode())
+        except OSError:
+            h.update(f"{f}:?:{w};".encode())
+    h.update(repr((tuple(dof_body_ids), tuple(dof_offsets))).encode())
+    base = os.path.basename(motion_file).replace(".", "_")
+    cache_dir = os.path.join(os.path.expanduser("~"), ".cache", "ase_tpu_torch")
+    return os.path.join(cache_dir, f"{base}_{h.hexdigest()[:16]}.msc")
 
+
+def _try_native_cache(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The arrays of the cache file at ``path``, copied out of its mapping
+    (a tensor made from them may outlive it), or None when the file is
+    missing or unreadable (the caller then writes it anew)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        entries, capsule = native.motion_cache().load(path)
+    except (OSError, ValueError):
+        return None
+    out = {name: np.frombuffer(view, dtype=np.dtype(dtype)).reshape(shape).copy()
+           for name, dtype, shape, view in entries}
+    del entries, capsule  # the views die before the capsule unmaps the file
+    return out
+
+
+def _save_native_cache(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write ``arrays`` (``_CACHE_FIELDS``) to ``path``: to a temporary
+    name, then renamed into place, so a concurrent reader never maps half
+    a file."""
+    names, dtypes, shapes, bufs = [], [], [], []
+    for k in _CACHE_FIELDS:
+        a = np.ascontiguousarray(arrays[k])
+        names.append(k)
+        dtypes.append(a.dtype.str)
+        shapes.append(tuple(int(x) for x in a.shape))
+        bufs.append(a)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    native.motion_cache().pack(tmp, names, dtypes, shapes, bufs)
+    os.replace(tmp, path)
+
+
+def _parse_clips(files, weights, dof_body_ids, dof_offsets) -> Dict[str, np.ndarray]:
+    """The dataset's ``_CACHE_FIELDS`` arrays from its ``.npy`` clips."""
+    num_dof = int(dof_offsets[-1])
     all_gts, all_grs, all_lrs, all_gvs, all_gavs, all_dvs = [], [], [], [], [], []
     lengths, nframes, dts = [], [], []
-    tree = None
     for path in files:
         tree, local_rot, root_t, fps, gv, gav = load_motion_npy(path)
         T = local_rot.shape[0]
@@ -228,11 +282,36 @@ def load_motion_lib(motion_file: str, dof_body_ids: Sequence[int],
         dts.append(clip_dt)
 
     w = np.asarray(weights, dtype=np.float32)
-    w = w / w.sum()
     nf = np.asarray(nframes, dtype=np.int32)
-    starts = np.concatenate([[0], np.cumsum(nf)[:-1]]).astype(np.int32)
-    gts, grs, lrs = np.concatenate(all_gts), np.concatenate(all_grs), np.concatenate(all_lrs)
-    gvs, gavs, dvs = np.concatenate(all_gvs), np.concatenate(all_gavs), np.concatenate(all_dvs)
+    return {
+        "gts": np.concatenate(all_gts), "grs": np.concatenate(all_grs),
+        "lrs": np.concatenate(all_lrs), "gvs": np.concatenate(all_gvs),
+        "gavs": np.concatenate(all_gavs), "dvs": np.concatenate(all_dvs),
+        "length_starts": np.concatenate([[0], np.cumsum(nf)[:-1]]).astype(np.int32),
+        "lengths": np.asarray(lengths, dtype=np.float32), "num_frames": nf,
+        "dt": np.asarray(dts, dtype=np.float32), "weights": w / w.sum(),
+    }
+
+
+def load_motion_lib(motion_file: str, dof_body_ids: Sequence[int],
+                    dof_offsets: Sequence[int], key_body_ids: Sequence[int],
+                    device="cuda", use_cache: bool = True) -> MotionLib:
+    """The dataset (a clip or a weighted ``.yaml``) as a ``MotionLib`` on
+    ``device``; with ``use_cache``, from its ``.msc`` cache when that
+    exists (a hit), else parsed and written there (a miss)."""
+    files, weights = _fetch_motion_files(motion_file)
+    arrays = None
+    if use_cache:
+        cpath = _cache_path(motion_file, files, weights, dof_body_ids, dof_offsets)
+        arrays = _try_native_cache(cpath)
+        CACHE["misses" if arrays is None else "hits"] += 1
+    if arrays is None:
+        arrays = _parse_clips(files, weights, dof_body_ids, dof_offsets)
+        if use_cache:
+            _save_native_cache(cpath, arrays)
+
+    gts, grs, lrs = arrays["gts"], arrays["grs"], arrays["lrs"]
+    gvs, gavs, dvs = arrays["gvs"], arrays["gavs"], arrays["dvs"]
     F = gts.shape[0]
     if F >= 2 ** 24:
         raise ValueError(f"{F} motion frames exceed the float32-exact frame index range")
@@ -241,17 +320,17 @@ def load_motion_lib(motion_file: str, dof_body_ids: Sequence[int],
         gts[:, 0], grs[:, 0], lrs.reshape(F, -1), gvs[:, 0], gavs[:, 0], dvs,
         gts[:, key].reshape(F, -1),
     ], axis=1).astype(np.float32)
-    meta = np.stack([np.asarray(lengths, np.float32), nf.astype(np.float32),
-                     np.asarray(dts, np.float32), starts.astype(np.float32)], axis=1)
+    meta = np.stack([arrays[k].astype(np.float32)
+                     for k in ("lengths", "num_frames", "dt", "length_starts")], axis=1)
 
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     return MotionLib(
         gts=t(gts), grs=t(grs), gvs=t(gvs), gavs=t(gavs),
-        lengths=t(lengths), weights=t(w),
+        lengths=t(arrays["lengths"]), weights=t(arrays["weights"]),
         key_body_ids=t(key, torch.long), packed=t(packed), meta=t(meta),
         dof_body_ids=tuple(int(i) for i in dof_body_ids),
         dof_offsets=tuple(int(i) for i in dof_offsets),
-        num_joints=tree.num_joints,
+        num_joints=int(gts.shape[1]),
     )

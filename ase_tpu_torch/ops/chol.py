@@ -134,10 +134,11 @@ def chol_forward(M: torch.Tensor, rhs: torch.Tensor,
     Y = torch.empty_like(rhs)
     Y2 = torch.empty_like(rhs2) if rhs2 is not None else None
     stream = torch.cuda.current_stream(M.device).cuda_stream
-    err = lib.ase_chol_forward(
-        M.data_ptr(), rhs.data_ptr(), rhs2.data_ptr() if rhs2 is not None else None,
-        L.data_ptr(), Y.data_ptr(), Y2.data_ptr() if Y2 is not None else None,
-        n, rhs.shape[1], 0 if rhs2 is None else rhs2.shape[1], B, stream)
+    with torch.cuda.device(M.device):   # the launch goes to the current device's context
+        err = lib.ase_chol_forward(
+            M.data_ptr(), rhs.data_ptr(), rhs2.data_ptr() if rhs2 is not None else None,
+            L.data_ptr(), Y.data_ptr(), Y2.data_ptr() if Y2 is not None else None,
+            n, rhs.shape[1], 0 if rhs2 is None else rhs2.shape[1], B, stream)
     _raise_on(err, "chol_forward")
     if rhs2 is None:
         LAUNCHES["chol_forward"] += 1
@@ -159,8 +160,9 @@ def back_solve(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     lib = _cuda_lib(L.device, n)
     x = torch.empty_like(y)
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    err = lib.ase_back_solve(L.data_ptr(), y.data_ptr(), x.data_ptr(),
-                             n, y.shape[1], B, stream)
+    with torch.cuda.device(L.device):
+        err = lib.ase_back_solve(L.data_ptr(), y.data_ptr(), x.data_ptr(),
+                                 n, y.shape[1], B, stream)
     _raise_on(err, "back_solve")
     LAUNCHES["back_solve"] += 1
     return x

@@ -36,8 +36,14 @@ shipped one):
 A train config with ``mixed_precision: true`` trains in bfloat16 (float32
 master weights and heads), and ``--randomize`` with an env config's
 ``task.randomization_params`` block trains under domain randomization.
-``--multi_gpu`` / ``--horovod`` and ``--save_video`` are not ported yet and
-raise. Without a card the command raises unless ``--device cpu`` is given.
+``--multi_gpu`` (or ``--horovod``, ``--multi_host``) trains data-parallel,
+one process per card, each stepping its share of ``numEnvs``:
+
+  torchrun --nproc_per_node=<cards> -m ase_tpu_torch.run --multi_gpu ...
+
+(with ``--device cpu``, on gloo). ``--test`` ignores those flags;
+``--save_video`` is not ported yet and raises. Without a card the command
+raises unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -58,22 +64,27 @@ def build_alg_runner():
     return {"amp": AMPAgent, "ase": ASEAgent, "hrl": HRLAgent}, PLAYER_REGISTRY
 
 
-def build_agent(argv=None, edit_cfg=None):
+def build_agent(argv=None, edit_cfg=None, mesh=None):
     """Parse ``argv``, build the env and the agent of the config's algo.
     ``edit_cfg(cfg, cfg_train)``, if given, may change the loaded configs
-    in place first (as a yaml of one's own would). Returns (agent, args,
-    cfg)."""
+    in place first (as a yaml of one's own would). Training under
+    ``--multi_gpu`` joins the process group (``parallel.mesh.init``)
+    unless a caller passes its ``mesh``; the rank's env takes its share of
+    ``numEnvs``. Returns (agent, args, cfg)."""
     from ase_tpu_torch.envs import parse_task
     from ase_tpu_torch.utils import config as cfg_util
 
     args = cfg_util.get_args(argv)
-    if not args.test and (args.multi_gpu or args.horovod):
-        raise NotImplementedError("--multi_gpu / --horovod: multi-GPU training is not "
-                                  "ported yet (ROADMAP.md, queue 1: multi-GPU)")
     if args.save_video:
         raise NotImplementedError("--save_video: the viz tools are not ported yet "
                                   "(ROADMAP.md, queue 1: motion tooling)")
-    device = torch.device(args.device)
+    if args.test:
+        mesh = None
+    elif mesh is None and (args.multi_gpu or args.horovod or args.multi_host):
+        from ase_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.init(device=args.device)
+    device = mesh.device if mesh is not None else torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the port runs on the card (or pass --device cpu)")
@@ -89,8 +100,16 @@ def build_agent(argv=None, edit_cfg=None):
     algos, _ = build_alg_runner()
     if algo not in algos:
         raise NotImplementedError(f"algo {algo!r} is not ported yet")
+    if mesh is not None:
+        num_envs = int(cfg["env"]["numEnvs"])
+        if num_envs % mesh.world:
+            raise ValueError(f"numEnvs {num_envs} does not divide over {mesh.world} ranks")
+        cfg["env"]["numEnvs"] = num_envs // mesh.world
+        # a config's seed -1 draws one per process: the run takes rank 0's
+        seed = int(mesh.broadcast(torch.tensor(cfg_train["params"]["seed"], device=device)))
+        cfg_train["params"]["seed"] = cfg["seed"] = cfg_util.set_seed(seed)
     env = parse_task(args.task, cfg, device=device)
-    return algos[algo](env, cfg_train, output_dir=args.output_path), args, cfg
+    return algos[algo](env, cfg_train, output_dir=args.output_path, mesh=mesh), args, cfg
 
 
 def build_player(argv=None):
@@ -129,7 +148,7 @@ def main(argv=None, num_steps: Optional[int] = None, max_chunks: int = 100):
     writer = None
     if args.bench:    # training throughput only: no writer, no periodic saves
         agent.save_frequency = 0
-    else:
+    elif agent.rank == 0:
         writer = make_writer(args.logdir or os.path.join(args.output_path, "summaries"))
     restore_path = None
     if args.resume and args.checkpoint not in ("", "Base"):
@@ -139,6 +158,8 @@ def main(argv=None, num_steps: Optional[int] = None, max_chunks: int = 100):
     finally:
         if writer is not None:
             writer.close()
+        if agent.mesh is not None:
+            agent.mesh.close()
 
 
 if __name__ == "__main__":

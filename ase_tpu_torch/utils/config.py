@@ -1,8 +1,9 @@
 """CLI flags + YAML config loading (port of ``ase_tpu/utils/config.py``).
 
 The flags of the player (``--test``) and of training, with the
-reference's names. ``--multi_gpu``, ``--horovod`` and ``--save_video``
-parse, and ``run.py`` refuses them until multi-GPU and the viz tools are
+reference's names. ``--multi_gpu``, ``--horovod`` and ``--multi_host``
+each train data-parallel in the process group torchrun starts;
+``--save_video`` parses, and ``run.py`` refuses it until the viz tools are
 ported. ``--device`` replaces the reference's ``--rl_device``: the port
 runs on ``cuda`` unless told otherwise.
 """
@@ -37,8 +38,12 @@ def get_args(argv=None) -> argparse.Namespace:
                    help="Resume training from --checkpoint (strict: the whole train state)")
     p.add_argument("--checkpoint", type=str, default="Base", help="Checkpoint path")
     p.add_argument("--headless", action="store_true", default=True)
-    p.add_argument("--horovod", action="store_true", help="Multi-GPU (not ported yet)")
-    p.add_argument("--multi_gpu", action="store_true", help="Multi-GPU (not ported yet)")
+    p.add_argument("--horovod", action="store_true", help="(compat) same as --multi_gpu")
+    p.add_argument("--multi_gpu", action="store_true",
+                   help="Data-parallel training, one process per card, under torchrun "
+                        "(--num_envs is the global count)")
+    p.add_argument("--multi_host", action="store_true",
+                   help="Same as --multi_gpu: torchrun's variables span the hosts")
     p.add_argument("--task", type=str, default="HumanoidAMP")
     p.add_argument("--cfg_env", type=str, default="humanoid_sword_shield.yaml")
     p.add_argument("--cfg_train", type=str, default="train/rlg/amp_humanoid.yaml")

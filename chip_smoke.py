@@ -24,7 +24,15 @@ Phases, each printed with its wall time against its budget:
               that rotate over copies of the inputs holding more than
               COLD_BYTES, so each call finds L2 cold, as in the engine,
               where other work runs between the calls.
-4. player  -- ``ase_tpu_torch.run``'s player on HumanoidAMPGetup with the
+4. cache   -- the native motion cache: the file ``_cache_path`` names for
+              the dataset yaml with the engine's dof ids is deleted, the
+              extension built (g++, timed), and the library loaded twice on
+              the card: a miss that parses the 87 clips and writes the file,
+              then a hit that maps it. Both wall times are printed; the
+              second load must count a hit and every tensor of the two
+              libraries must be bit-equal. Every later phase that loads the
+              dataset loads it from this file.
+4b. player -- ``ase_tpu_torch.run``'s player on HumanoidAMPGetup with the
               shipped ASE LLC at 4096 envs for one chunk of STEPS control
               steps. The kernel launch counters are zeroed just before and
               read just after; obs, actions and rewards must be finite.
@@ -48,7 +56,7 @@ Phases, each printed with its wall time against its budget:
               CPU, from the same state and goal draws.
 8. train   -- ``ase_tpu_torch.run``'s training branch with the shipped
               ase_humanoid.yaml at its full widths and 4096 envs for
-              TRAIN_EPOCHS epochs (only the epoch count is cut): per epoch
+              TRAIN_EPOCHS epoch (only the epoch count is cut): per epoch
               the wall time with its rollout/update split, training
               env-steps/s, the losses, the Cholesky kernels' launches
               (exactly 128 each: 32 steps x 2 ticks x 2 substeps; counters
@@ -63,10 +71,10 @@ Phases, each printed with its wall time against its budget:
               final checkpoint (``Humanoid.ckpt.npz`` in a temporary
               directory under chiprun_out/) goes into a new agent built by
               ``run.build_agent`` with ``--resume 1 --checkpoint <it>
-              --max_iterations 3``; its weights, Adam moments and steps,
-              three normalizers and epoch must be bit-equal to the saved
-              agent's; it trains epoch 3 (TRAIN_LAUNCHES launches each), and
-              the directory is deleted.
+              --max_iterations TRAIN_EPOCHS + 1``; its weights, Adam moments
+              and steps, three normalizers and epoch must be bit-equal to
+              the saved agent's; it trains one more epoch (TRAIN_LAUNCHES
+              launches each), and the directory is deleted.
 9. train_bf16 -- the same training branch under ``mixed_precision: true``
               (bfloat16 dense layers over float32 parameters and heads) for
               TRAIN_BF16_EPOCHS epoch, the train phase's fall states reused:
@@ -117,6 +125,22 @@ Phases, each printed with its wall time against its budget:
 17. dr_check -- ``check_tick`` on DR_CHECK_ENVS of those envs with every
               knob away from its base (restitution and actor scale
               included), card against CPU.
+18. multi  -- data-parallel training: MULTI_RANKS ranks on the one card, a
+              gloo group staging its collectives through host memory (NCCL
+              refuses two ranks on one device), spawned as processes that
+              each run ``run.build_agent(MULTI_ARGV, mesh=...)`` and
+              ``agent.train``: one epoch of ase_humanoid.yaml at its full
+              widths on HumanoidAMP (the dr phase's env without the
+              randomizer) at MULTI_ENVS envs in all. Each rank must launch
+              exactly TRAIN_LAUNCHES of chol_forward2 and back_solve and no
+              chol_forward, every metric must be finite and the ranks'
+              weight checksums bit-equal; a rank that exits non-zero or
+              outlives the phase budget fails it (and is killed). The global
+              env-steps/s is printed beside the one-rank train and dr rates.
+19. nccl   -- a world-1 NCCL group in this process through
+              ``parallel.mesh.init()``: all_reduce_sum, all_gather_rows and
+              broadcast on CUDA tensors with known answers, then the group
+              is destroyed.
 
 Any failure exits non-zero. The last two lines are the kernels JSON and the
 result JSON ``{"ok": true, "device": {...}}``.
@@ -125,9 +149,11 @@ result JSON ``{"ok": true, "device": {...}}``.
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -136,7 +162,7 @@ import time
 STEPS = 16
 FALL_LAUNCHES = 150 * 2          # fall-state drop: 150 ticks x 2 substeps
 TOTAL_BUDGET_S = 570
-TRAIN_EPOCHS = 2
+TRAIN_EPOCHS = 1
 TRAIN_LAUNCHES = 32 * 2 * 2      # per epoch: horizon 32 x 2 ticks x 2 substeps
 HRL_DECISIONS = 16
 STRIKE_DECISIONS = 16
@@ -147,7 +173,8 @@ PERTURB_LAUNCHES = PERTURB_STEPS * 2 * 2
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
             "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "train_bf16": 150,
             "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
-            "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60}
+            "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60, "cache": 60,
+            "multi": 150, "nccl": 30}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -223,6 +250,17 @@ DR_ARGV = [
     "--motion_file", DATASET,
     "--num_envs", str(DR_ENVS), "--max_iterations", str(DR_EPOCHS), "--seed", "0",
     "--randomize",
+]
+
+
+MULTI_RANKS = 2
+MULTI_ENVS = 4096
+MULTI_ARGV = [
+    "--task", "HumanoidAMP",
+    "--cfg_env", "humanoid_ase_sword_shield.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--num_envs", str(MULTI_ENVS), "--max_iterations", "1", "--seed", "0", "--multi_gpu",
 ]
 
 
@@ -1647,6 +1685,212 @@ def perturb_check_phase(player):
                env._pd_action_offset[None] + env._pd_action_scale[None] * act)
 
 
+def cache_phase(card):
+    """The native motion cache: delete the dataset's cache file, build the
+    extension, then load the library twice (a miss, then a hit) on the
+    card. Returns (cold load s, warm load s)."""
+    import dataclasses
+
+    import torch
+    import yaml
+    from ase_tpu_torch import native
+    from ase_tpu_torch.motion import motion_lib as ml
+    from ase_tpu_torch.physics import mjcf
+    from ase_tpu_torch.utils import paths
+
+    with open(paths.data_path("cfg", "humanoid_ase_sword_shield_getup.yaml")) as f:
+        env_cfg = yaml.safe_load(f)["env"]
+    asset = env_cfg["asset"]
+    model = mjcf.load_mjcf(mjcf.find_asset(asset["assetRoot"], asset["assetFileName"]),
+                           device="cpu")
+    keys = [model.body_index(b) for b in env_cfg["keyBodies"]]
+    path = paths.motion_file(DATASET)
+    files, weights = ml._fetch_motion_files(path)
+    cpath = ml._cache_path(path, files, weights, model.dof_body_ids, model.dof_offsets)
+    if os.path.exists(cpath):
+        os.remove(cpath)
+    t0 = time.time()
+    native.motion_cache()
+    t_build = time.time() - t0
+
+    def load():
+        before = dict(ml.CACHE)
+        t0 = time.time()
+        lib = ml.load_motion_lib(path, model.dof_body_ids, model.dof_offsets, keys,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        return lib, time.time() - t0, {k: ml.CACHE[k] - before[k] for k in before}
+
+    cold, t_cold, counted_cold = load()
+    warm, t_warm, counted_warm = load()
+    if counted_cold != {"hits": 0, "misses": 1} or counted_warm != {"hits": 1, "misses": 0}:
+        raise Failed(f"cache: the loads counted {counted_cold} then {counted_warm}, want a "
+                     "miss then a hit")
+    for f in dataclasses.fields(cold):
+        a, b = getattr(cold, f.name), getattr(warm, f.name)
+        same = (a.dtype == b.dtype and torch.equal(a, b)) if torch.is_tensor(a) else a == b
+        if not same:
+            raise Failed(f"cache: {f.name} of the hit differs from the miss's")
+    print(f"motion cache: extension built in {t_build:.2f} s; {len(files)} clips, "
+          f"{os.path.getsize(cpath) / 2 ** 20:.1f} MiB cache; cold load (parse + write) "
+          f"{t_cold:.3f} s, warm load (map) {t_warm:.3f} s, tensors bit-equal ({card})",
+          flush=True)
+    return t_cold, t_warm
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_rank(rank, port, out_dir):
+    """One rank of the multi phase, in a spawned process: join the gloo
+    group on the card, set up and train one epoch through ``run``, and
+    write what it counted to ``out_dir/rank<rank>.json``."""
+    sys.path.insert(0, REPO)
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(MULTI_RANKS), "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.motion import motion_lib as ml
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.init(backend="gloo", device="cuda:0")
+    try:
+        agent, _, _ = run.build_agent(MULTI_ARGV + ["--output_path", out_dir], mesh=mesh)
+        t0 = time.time()
+        env_state = agent.setup_training()
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        records = []
+
+        def on_epoch(rec):
+            rec["launches"] = dict(chol.LAUNCHES)
+            records.append(rec)
+
+        torch.cuda.reset_peak_memory_stats()
+        chol.reset_launches()
+        env_state, _ = agent.train(env_state=env_state, on_epoch=on_epoch)
+        out = {"rank": mesh.rank, "world": mesh.world, "staged": mesh.staged,
+               "envs": agent.num_actors, "setup_s": setup_s, "records": records,
+               "checksum": agent.replica_checksum().tolist(), "cache": dict(ml.CACHE),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "finite_obs": bool(torch.isfinite(env_state.obs).all())}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh.close()
+
+
+def multi_phase(card, rates):
+    """MULTI_RANKS ranks of ``multi_rank`` on the one card; ``rates`` are
+    the one-rank phases' env-steps/s to print beside the global rate.
+    Returns rank 0's launches."""
+    def ranks(out_dir):
+        ctx = multiprocessing.get_context("spawn")   # this process holds a CUDA context
+        port = _free_port()
+        procs = [ctx.Process(target=multi_rank, args=(r, port, out_dir))
+                 for r in range(MULTI_RANKS)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, BUDGET_S["multi"] - (time.time() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * MULTI_RANKS:
+            raise Failed(f"multi: rank exit codes {codes} (a negative code: killed after "
+                         f"the {BUDGET_S['multi']} s budget, or by a signal)")
+        out = []
+        for r in range(MULTI_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+    results = _in_temp_dir("smoke_multi_", ranks)
+    want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+    for res in results:
+        r = res["rank"]
+        if (res["world"], res["staged"], res["envs"]) != (MULTI_RANKS, True,
+                                                          MULTI_ENVS // MULTI_RANKS):
+            raise Failed(f"multi: rank {r} ran world {res['world']}, staged {res['staged']}, "
+                         f"{res['envs']} envs")
+        if len(res["records"]) != 1:
+            raise Failed(f"multi: rank {r} trained {len(res['records'])} epochs, want 1")
+        rec = res["records"][0]
+        if rec["launches"] != want:
+            raise Failed(f"multi: rank {r} launched {rec['launches']}, want {want}")
+        bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+        if bad or not res["finite_obs"]:
+            raise Failed(f"multi: rank {r}: non-finite metrics {bad} or observations")
+    if len({tuple(res["checksum"]) for res in results}) != 1:
+        raise Failed(f"multi: replica checksums differ: {[res['checksum'] for res in results]}")
+    if len({json.dumps(res["records"][0]["metrics"]) for res in results}) != 1:
+        raise Failed("multi: the ranks report different metrics")
+    for res in results:
+        rec = res["records"][0]
+        print(f"multi rank {res['rank']}: setup {res['setup_s']:.1f} s; epoch wall "
+              f"{rec['wall_s']:.2f} s (rollout {rec['rollout_s']:.2f} s, update "
+              f"{rec['update_s']:.2f} s); launches {rec['launches']}; peak device memory "
+              f"{res['peak_gib']:.2f} GiB; motion cache {res['cache']}", flush=True)
+    rec = results[0]["records"][0]
+    m = rec["metrics"]
+    print(f"multi: {MULTI_RANKS} ranks on one card (gloo, host-staged), {MULTI_ENVS} envs in "
+          f"all: {rec['env_steps_per_s']:.1f} global env-steps/s; one rank in this call: "
+          + "; ".join(f"{k} {v}" for k, v in rates.items())
+          + f"; checksums bit-equal {results[0]['checksum']}; " + ", ".join(
+              f"{k} {m[k]:.4f}" for k in ("a_loss", "c_loss", "disc_loss", "enc_loss", "kl"))
+          + f" ({card})", flush=True)
+    return rec["launches"]
+
+
+def nccl_phase():
+    """A world-1 NCCL group in this process through ``parallel.mesh.init()``."""
+    import torch
+    import torch.distributed as dist
+    from ase_tpu_torch.parallel import mesh as mesh_lib
+
+    group_vars = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                  "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in group_vars}
+    os.environ.update(group_vars)
+    try:
+        mesh = mesh_lib.init()
+        try:
+            if dist.get_backend() != "nccl" or mesh.staged or mesh.device != torch.device("cuda", 0):
+                raise Failed(f"nccl: backend {dist.get_backend()}, staged {mesh.staged}, "
+                             f"device {mesh.device}")
+            x = torch.arange(12.0, device="cuda").reshape(4, 3)
+            ints = torch.tensor([[1 << 40, -3]], dtype=torch.int64, device="cuda")
+            got = {"all_reduce_sum": mesh.all_reduce_sum(x), "all_gather_rows": mesh.all_gather_rows(x),
+                   "broadcast": mesh.broadcast(x), "all_gather_rows int64": mesh.all_gather_rows(ints)}
+            want = {"all_reduce_sum": x, "all_gather_rows": x, "broadcast": x,
+                    "all_gather_rows int64": ints}
+            for k, v in got.items():
+                if v.device != x.device or not torch.equal(v, want[k]):
+                    raise Failed(f"nccl: {k} gave {v.tolist()} on {v.device}")
+            torch.cuda.synchronize()
+        finally:
+            mesh.close()
+        if dist.is_initialized():
+            raise Failed("nccl: the process group outlived destroy_process_group")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print("nccl: world-1 NCCL group: all_reduce_sum, all_gather_rows (float32, int64) and "
+          "broadcast on cuda:0 as expected; group destroyed", flush=True)
+
+
 def main():
     t_start = time.time()
     signal.signal(signal.SIGALRM, _timeout)
@@ -1656,6 +1900,9 @@ def main():
 
     phase("build", build_phase, t_start)
     rows = phase("kernels", kernels_phase, t_start)
+    t_cold, t_warm = phase("cache", lambda: cache_phase(card), t_start)
+    from ase_tpu_torch.motion import motion_lib as ml
+    hits_before = ml.CACHE["hits"]
     launches, player = phase("player", lambda: player_phase(card), t_start)
     phase("profile", lambda: profile_phase(player, card), t_start)
     phase("check", lambda: check_phase(player), t_start)
@@ -1688,6 +1935,17 @@ def main():
     dr_records, dr_agent, dr_state = phase("dr", lambda: dr_phase(card), t_start)
     phase("dr_check", lambda: dr_check_phase(dr_agent, dr_state), t_start)
     del dr_agent, dr_state
+    torch.cuda.empty_cache()
+    hits = ml.CACHE["hits"] - hits_before
+    print(f"motion cache: {hits} later loads of the dataset in this process hit the cache "
+          f"and took {t_warm:.3f} s each against {t_cold:.3f} s cold, ~{hits * (t_cold - t_warm):.2f} "
+          f"s saved ({card})", flush=True)
+    rates = {"train epochs (HumanoidAMPGetup)": ", ".join(
+                 f"{r['env_steps_per_s']:.1f}" for r in records),
+             "dr epoch (HumanoidAMP, randomized)": ", ".join(
+                 f"{r['env_steps_per_s']:.1f}" for r in dr_records)}
+    multi_launches = phase("multi", lambda: multi_phase(card, rates), t_start)
+    phase("nccl", nccl_phase, t_start)
     signal.alarm(0)
     names = ("chol_forward2", "back_solve", "chol_forward")
     train_launches = {k: sum(r["launches"][k] for r in records) for k in names}
@@ -1705,7 +1963,7 @@ def main():
                     hrl_train_launches=hrl_train_launches[k],
                     perturb_launches=perturb_launches[k],
                     train_bf16_launches=train_bf16_launches[k], dr_launches=dr_launches[k],
-                    on_path=k != "chol_forward", **rows[k])
+                    multi_launches=multi_launches[k], on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

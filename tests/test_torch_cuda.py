@@ -280,6 +280,35 @@ def test_dr_tick_on_the_card_matches_the_cpu(cuda):
                           st, act, knobs)
 
 
+@pytest.mark.cuda
+def test_gloo_group_stages_cuda_tensors_through_the_host(cuda, monkeypatch):
+    """A gloo group carrying CUDA tensors (how two ranks share one card:
+    NCCL refuses two ranks on one device) stages each collective through
+    host memory; the results come back on the card. World 1, this process."""
+    import socket
+
+    import torch.distributed as dist
+    from ase_tpu_torch.parallel import mesh as mesh_lib
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+    mesh = mesh_lib.init(backend="gloo")
+    try:
+        assert mesh.staged and mesh.device == torch.device("cuda", 0)
+        assert dist.get_backend() == "gloo"
+        x = torch.arange(6.0, device=cuda).reshape(3, 2)
+        ints = torch.tensor([[1 << 40, -3]], dtype=torch.int64, device=cuda)
+        for got, want in ((mesh.all_reduce_sum(x), x), (mesh.all_gather_rows(x), x),
+                          (mesh.broadcast(x), x), (mesh.all_gather_rows(ints), ints)):
+            assert got.device == want.device and torch.equal(got, want)
+    finally:
+        mesh.close()
+
+
 # The minibatch checks themselves, on the CPU (their "card" side on the CPU too).
 
 @pytest.fixture(scope="module")

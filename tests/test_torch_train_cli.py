@@ -86,9 +86,12 @@ def test_cli_resumes_a_run(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     argv = _argv(tmp_path)
-    for flag in (["--multi_gpu"], ["--horovod"], ["--save_video", "x.mp4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run.build_agent(argv + flag + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run.build_agent(argv + ["--save_video", "x.mp4", "--device", "cpu"])
+    # data-parallel training is ported: outside torchrun its flags name it
+    for flag in ("--multi_gpu", "--horovod", "--multi_host"):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            run.build_agent(argv + [flag, "--device", "cpu"])
     # an HRL agent trains over a low-level controller, which it must be given
     with pytest.raises(ValueError, match="--llc_checkpoint"):
         run.build_agent(["--task", "HumanoidStrike", "--cfg_env", "humanoid_sword_shield_strike.yaml",
