@@ -1,7 +1,7 @@
 """Environment layer: batched humanoid tasks (port of ``ase_tpu/envs``).
 
-The registry holds every task of the reference; the view-motion task
-raises until torque control, which it forces, is ported.
+The registry holds every task of the reference, under the reference's
+names.
 """
 
 from ase_tpu_torch.envs.humanoid import EnvState, Humanoid
@@ -13,16 +13,7 @@ from ase_tpu_torch.envs.humanoid_location import HumanoidLocation
 from ase_tpu_torch.envs.humanoid_perturb import HumanoidPerturb
 from ase_tpu_torch.envs.humanoid_reach import HumanoidReach
 from ase_tpu_torch.envs.humanoid_strike import HumanoidStrike
-
-
-def _not_ported(name: str, item: str):
-    def init(self, cfg, device="cuda"):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1: {item})")
-
-    return type(name, (), {"__init__": init})
-
-
-HumanoidViewMotion = _not_ported("HumanoidViewMotion", "torque control, which view_motion forces")
+from ase_tpu_torch.envs.humanoid_view_motion import HumanoidViewMotion
 
 TASK_REGISTRY = {
     "Humanoid": Humanoid,

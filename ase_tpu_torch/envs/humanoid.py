@@ -16,8 +16,11 @@ it resets before their new states are built, a control step ticks the
 schedule, noises the actions and hands the knobs to the engine, and the
 observations get their noise after they are computed. The knob state lives
 in ``aux`` under ``dr_*`` keys, its 0-d ``dr_step_count`` beside the
-per-env tensors. Torque control is not ported: the env raises if
-``pdControl`` is off.
+per-env tensors.
+
+With ``pdControl`` off the actions drive the joints as torques (action x
+motor gear x ``powerScale``), and ``solverScheme: pgs`` picks the
+sequential Gauss-Seidel contact solve (``physics/engine.py``).
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ class Humanoid:
         self.cfg = cfg
         self.device = torch.device(device)
         env_cfg = cfg["env"]
-        if not bool(env_cfg.get("pdControl", True)):
-            raise NotImplementedError("torque control (pdControl: false) is not ported")
+        self._pd_control = bool(env_cfg.get("pdControl", True))
+        self.power_scale = float(env_cfg.get("powerScale", 1.0))
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg["episodeLength"])
         self.control_freq_inv = int(env_cfg.get("controlFrequencyInv", 2))
@@ -139,9 +142,9 @@ class Humanoid:
             ),
             max_contacts=int(env_cfg.get("maxContacts", 24)),
             enable_self_collision=bool(env_cfg.get("enableSelfCollision", True)),
+            torque_control=not self._pd_control,
+            power_scale=self.power_scale,
         )
-        if self.sim_cfg.solver.scheme != "jacobi":
-            raise NotImplementedError("only the block-Jacobi contact solver is ported")
         self._tables = engine.Tables(self.model, self.sim_cfg)
 
         self._key_body_ids = torch.as_tensor(
@@ -360,7 +363,13 @@ class Humanoid:
     # -- stepping -------------------------------------------------------------------
 
     def pre_physics_step(self, state: EnvState, actions: torch.Tensor):
-        tgt = self._pd_action_offset[None] + self._pd_action_scale[None] * actions
+        """The env state with ``actions`` stored, and what the engine gets:
+        PD position targets, or under torque control the actions as they
+        are."""
+        if self._pd_control:
+            tgt = self._pd_action_offset[None] + self._pd_action_scale[None] * actions
+        else:
+            tgt = actions
         return state.replace(actions=actions), tgt
 
     def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:

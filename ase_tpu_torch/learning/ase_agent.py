@@ -128,9 +128,11 @@ class ASEAgent(AMPAgent):
     # -- losses -------------------------------------------------------------------------
 
     def _enc_kernels(self):
-        """The encoder's weights (the shared disc trunk and the head; no biases)."""
-        return [layer.weight for layer in self.network.disc_mlp.layers] + \
-            [self.network.enc_head.weight]
+        """The encoder's weights (its trunk, ``enc_mlp`` or the shared disc
+        trunk, and the head; no biases)."""
+        net = self.network
+        trunk = net.disc_mlp if net.enc_mlp is None else net.enc_mlp
+        return [layer.weight for layer in trunk.layers] + [net.enc_head.weight]
 
     def _extra_loss(self, loss, mb, info):
         loss, info = super()._extra_loss(loss, mb, info)

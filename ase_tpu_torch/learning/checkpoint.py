@@ -122,8 +122,8 @@ def _linears(net):
     """(flax path, nn.Linear) of every dense layer of an AMP, ASE or HRL
     network."""
     out = []
-    for name in ("actor_mlp", "critic_mlp", "disc_mlp"):
-        if hasattr(net, name):
+    for name in ("actor_mlp", "critic_mlp", "disc_mlp", "enc_mlp"):
+        if getattr(net, name, None) is not None:
             out += [((name, f"Dense_{i}"), layer)
                     for i, layer in enumerate(getattr(net, name).layers)]
     if hasattr(net, "style_net"):

@@ -10,8 +10,9 @@ style output, the ±0.1-uniform encoder head, and a constant log-sigma
 AMP: separate actor/critic MLPs on the observation plus the discriminator.
 ASE: the actor is a style net (latent -> 512 -> 256 -> tanh style vector)
 concatenated with the observation into the main MLP; the critic sees
-obs + latent; the encoder shares the discriminator trunk and L2-normalizes
-its head. HRL: separate actor/critic MLPs on the task observation, whose
+obs + latent; the encoder shares the discriminator trunk (or, with
+``enc.separate``, has an MLP of its own, ``enc_mlp``, of the ``enc.units``
+widths) and L2-normalizes its head. HRL: separate actor/critic MLPs on the task observation, whose
 action is a latent of the low-level controller. Trained weights come from
 ``learning.checkpoint``.
 
@@ -129,7 +130,10 @@ class ASENetwork(nn.Module):
     def __init__(self, obs_dim: int, amp_obs_dim: int, actions_num: int, latent_dim: int,
                  units: Sequence[int], disc_units: Sequence[int],
                  style_units: Sequence[int] = (512, 256), sigma_init_val: float = -2.9,
-                 gen: torch.Generator = None, dtype: Optional[torch.dtype] = None):
+                 gen: torch.Generator = None, dtype: Optional[torch.dtype] = None,
+                 enc_units: Optional[Sequence[int]] = None):
+        """``enc_units``: the widths of a separate encoder MLP; None shares
+        the discriminator trunk."""
         super().__init__()
         self.style_net = StyleNet(latent_dim, style_units, latent_dim, gen, dtype)
         self.actor_mlp = MLP(obs_dim + latent_dim, units, gen, dtype)
@@ -139,7 +143,9 @@ class ASENetwork(nn.Module):
         self.sigma = nn.Parameter(torch.full((actions_num,), float(sigma_init_val)))
         self.disc_mlp = MLP(amp_obs_dim, disc_units, gen, dtype)
         self.disc_logits = _linear(disc_units[-1], 1, gen, scale=1.0, dtype=dtype)
-        self.enc_head = _linear(disc_units[-1], latent_dim, gen, scale=0.1, dtype=dtype)
+        self.enc_mlp = None if enc_units is None else MLP(amp_obs_dim, enc_units, gen, dtype)
+        trunk = (disc_units if enc_units is None else enc_units)[-1]
+        self.enc_head = _linear(trunk, latent_dim, gen, scale=0.1, dtype=dtype)
 
     def eval_actor(self, obs, ase_latents) -> Tuple[torch.Tensor, torch.Tensor]:
         # float32 obs beside a bfloat16 style vector: the cat promotes to
@@ -155,7 +161,8 @@ class ASENetwork(nn.Module):
         return self.disc_logits(self.disc_mlp(amp_obs)).float()
 
     def eval_enc(self, amp_obs) -> torch.Tensor:
-        out = self.enc_head(self.disc_mlp(amp_obs)).float()
+        trunk = self.disc_mlp if self.enc_mlp is None else self.enc_mlp
+        out = self.enc_head(trunk(amp_obs)).float()
         return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-8)
 
 
@@ -220,7 +227,7 @@ def build_ase_network(params, obs_dim: int, act_dim: int, amp_obs_dim: int,
     """ASENetwork from a cfg_train ``params`` block, initialised on the CPU."""
     net, kw = _checked(params)
     if net["enc"].get("separate", False):
-        raise NotImplementedError("a separate encoder MLP is not ported yet")
+        kw["enc_units"] = tuple(net["enc"]["units"])
     return ASENetwork(obs_dim=obs_dim, amp_obs_dim=amp_obs_dim, actions_num=act_dim,
                       latent_dim=latent_dim, gen=_init_gen(params), **kw)
 

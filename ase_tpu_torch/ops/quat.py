@@ -130,7 +130,13 @@ def quat_to_rotation_matrix(q):
 
 def slerp(q0, q1, t):
     """Spherical interpolation; t broadcasts with trailing dim 1."""
-    cos_half = torch.sum(q0 * q1, dim=-1)
+    # the dot product as elementwise ops in a fixed order (that of a CPU
+    # reduction and of the reference's eager sum): the branches below must
+    # take the same side on every device, and near sin_half = 1e-3 one ulp
+    # of cos_half moves sin_half by 6% of that threshold; a reduction on the
+    # card sums in another order
+    p = q0 * q1
+    cos_half = ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
     q1 = torch.where(cos_half[..., None] < 0.0, -q1, q1)
     cos_half = torch.abs(cos_half)[..., None]
     cos_half_c = torch.clamp(cos_half, 0.0, 1.0)

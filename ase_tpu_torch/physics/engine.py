@@ -1,31 +1,42 @@
 """The simulation engine: one batched sim tick over its substeps (port of
-``ase_tpu/physics/engine.py``: ``step_batched`` and ``_substep_batched`` on
-the Z-form Jacobi path).
+``ase_tpu/physics/engine.py``: ``step_batched`` and ``_substep_batched``).
 
 Per tick: one narrow phase at the pre-tick pose (PhysX-TGS cadence, the
 reference's default), then ``substeps`` substeps of: dynamics assembly,
-Stable-PD + limit torques, the contact Jacobian, ONE fused Cholesky +
-forward substitution (``ops.chol.chol_forward``, a CUDA kernel on the card),
-the block-Jacobi contact solve on A = Z^T Z, ONE backward substitution
-(``ops.chol.back_solve``), and semi-implicit integration.
+the actuation torques (Stable-PD on position targets, or under
+``torque_control`` the actions times the motor gear and ``power_scale``)
+plus the limit torques, the contact step, and semi-implicit integration.
+
+The contact step follows ``cfg.solver.scheme``:
+- ``jacobi`` (the default): the Z-form path. The contact Jacobian, ONE
+  fused Cholesky + forward substitution (``ops.chol.chol_forward``, a CUDA
+  kernel on the card), the block-Jacobi contact solve on A = Z^T Z, ONE
+  backward substitution (``ops.chol.back_solve``).
+- ``pgs``: the reference's AoS branch. The mass matrix factored by the
+  library (``cholesky_ex``), qdd and W = M^-1 J^T by two-sided triangular
+  solves, and the sequential projected Gauss-Seidel solve of
+  ``physics/solver.py``. It launches none of the Cholesky kernels: the
+  reference runs none on this branch either.
+Any other scheme raises ``ValueError`` (the reference runs PGS for it).
 
 Free props (the strike target, the perturb projectiles) are solved in
 closed form beside the articulation: each is a rigid body with 6 velocity
 dofs after the articulation's in ``u``, its free step (gravity and the
 gyroscopic term) done explicitly, its inverse mass in the contact solve
-through ``W_prop``. They add no row to the Cholesky kernels' systems.
+through ``W_prop``. They add no row to the Cholesky systems.
 
 Domain randomization reaches the tick through the reference's knobs
-(``engine.py:421``): friction per env or per shape, the PD gain
-(stiffness) scale per env or per dof, mass per env or per body, gravity
-(props included), damping, the plane's restitution (a Newton bounce
-target on the pre-solve normal velocities) and the actor's geometric
-scale (FK, dynamics and the humanoid's geoms). A knob left at None costs
-nothing; the Cholesky systems stay n = nu whatever the knobs.
+(``engine.py:421``): friction per env or per shape, the gain (stiffness)
+scale of the actuation torque per env or per dof, mass per env or per
+body, gravity (props included), damping, the plane's restitution (a
+Newton bounce target on the pre-solve normal velocities; the PGS branch
+ignores it, as the reference's does) and the actor's geometric scale (FK,
+dynamics and the humanoid's geoms). A knob left at None costs nothing;
+the Cholesky systems stay n = nu whatever the knobs.
 
 Left out of the port, as the reference keeps them only for A/B work: the
-AoS debug branches, the ``ASE_TPU_*_AOS`` / ``ASE_TPU_COLLISION_PER_SUBSTEP``
-switches and the PGS path.
+AoS dynamics, FK, PD and collision oracles and the ``ASE_TPU_*_AOS`` /
+``ASE_TPU_COLLISION_PER_SUBSTEP`` switches.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ import torch
 
 from ase_tpu_torch.ops import chol, linalg3
 from ase_tpu_torch.ops import quat as rot
-from ase_tpu_torch.physics import collision3, dynamics, dynamics2, solver2
+from ase_tpu_torch.physics import collision3, dynamics, dynamics2, solver, solver2
 from ase_tpu_torch.physics import model as M
 from ase_tpu_torch.physics.dynamics import State
 from ase_tpu_torch.physics.solver import SolverConfig
@@ -48,6 +59,8 @@ class SimConfig(NamedTuple):
     solver: SolverConfig = SolverConfig()
     max_contacts: int = 24
     enable_self_collision: bool = True
+    torque_control: bool = False       # False: PD position drives
+    power_scale: float = 1.0           # torque control: tau = action x gear x this
     limit_stiffness: float = 200.0
     max_dof_vel: float = 64.0
 
@@ -69,6 +82,7 @@ class Tables:
     dof gather tables and the implicit-damping diagonal."""
 
     def __init__(self, model: M.Model, cfg: SimConfig):
+        solver.check_scheme(cfg.solver.scheme)      # the substep trusts it from here
         self.soa = collision3.build_soa_tables(model, cfg.enable_self_collision)
         self.detect = collision3.DetectConsts(model, self.soa, model.device)
         self.dyn = dynamics2.DynStatic(model)
@@ -111,31 +125,17 @@ def _free_props(model: M.Model, states: State, h: float, gravity_scale=None):
     return torch.cat([v, w], dim=-1).reshape(Bn, -1), I_w
 
 
-def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
-                     actions: torch.Tensor, kin: dynamics.Kin, contacts, gain_scale=None,
-                     mass_scale=None, gravity_scale=None, damping_scale=None,
-                     restitution=None, actor_scale=None):
+def _zform_contact_step(model: M.Model, cfg: SimConfig, T: Tables, states: State, contacts,
+                        M_bl, bias, Phi, tau_full, u_free_prop, I_w, restitution):
+    """The Jacobi scheme's contact step in Z-form (``engine.py:262-334``):
+    with Z = L^-1 J^T the Delassus operator is A = Z^T Z and the free
+    contact velocity is J u + h Z^T y0, y0 = L^-1 (tau - bias), so one fused
+    factor and forward substitution (``chol.chol_forward``) and one
+    backward substitution (``chol.back_solve``) carry the substep.
+    Returns (u_new (B, nv), body_forces (B, nb + np, 3))."""
     h = cfg.dt / cfg.substeps
-    nu, rd, P = model.nu, model.root_dofs, model.num_props
-    Bn = actions.shape[0]
-
-    M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(
-        model, T.dyn, states, kin, T.diag, mass_scale=mass_scale, gravity_scale=gravity_scale,
-        damping_scale=damping_scale, actor_scale=actor_scale, diag_parts=T.diag_parts)
-
-    tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h, kd_scale=damping_scale)
-    limit = dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
-    if gain_scale is None:
-        tau = tau + limit
-    else:   # stiffness randomization scales the whole PD torque
-        tau = tau * (gain_scale[:, None] if gain_scale.dim() == 1 else gain_scale) + limit
-    tau_full = torch.zeros(Bn, nu, device=actions.device)
-    tau_full[:, rd:] = tau
-    if P:
-        u_free_prop, I_w = _free_props(model, states, h, gravity_scale)
-
-    # Z-form: with Z = L^-1 J^T the Delassus operator is A = Z^T Z and the
-    # free contact velocity is J u + h Z^T y0, y0 = L^-1 (tau - bias)
+    nu, P = model.nu, model.num_props
+    Bn = tau_full.shape[0]
     JT_bl, JT_prop = solver2.contact_jacobian_t_bl(
         model, contacts, Phi, T.Amask, states.root_pos, states.prop_pos)
     L_bl, Z, y0 = chol.chol_forward(M_bl, JT_bl, (tau_full - bias).T[:, None, :].contiguous())
@@ -175,6 +175,72 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
         u_new = torch.cat([u_new, u_free_prop + torch.einsum("bvj,bj->bv", W_prop, lam_f)], 1)
     body_forces = solver2.body_forces_from_lambda(
         model, contacts, lam_f, h, contact_offset=cfg.solver.contact_offset)
+    return u_new, body_forces
+
+
+def _aos_contact_step(model: M.Model, cfg: SimConfig, T: Tables, states: State, contacts,
+                      M_bl, bias, Phi, tau_full, u_free_prop, I_w, restitution):
+    """The PGS scheme's contact step on the AoS branch (``engine.py:335-366``):
+    the mass matrix factored and solved two-sided for qdd and for
+    W = M^-1 J^T (library calls: the reference runs these outside any
+    Pallas kernel), the props' block of W from their 3x3 inverses, then
+    ``solver.solve_batched``. As in the reference, this branch ignores the
+    ``restitution`` knob. Returns (u_new (B, nv), body_forces (B, nb + np,
+    3))."""
+    h = cfg.dt / cfg.substeps
+    nu, P = model.nu, model.num_props
+    Bn = tau_full.shape[0]
+    # cholesky_ex: torch.linalg.cholesky would sync the host to check info
+    L = torch.linalg.cholesky_ex(M_bl.permute(2, 0, 1), check_errors=False).L
+    J = solver.contact_jacobian(model, contacts, Phi, T.Amask, states.root_pos,
+                                states.prop_pos)                   # (B, K, 3, nv)
+    Jf = J.reshape(Bn, -1, model.nv)
+    # qdd and W_art share the two triangular solves: columns [tau - bias | J^T]
+    rhs = torch.cat([(tau_full - bias)[:, :, None], Jf[..., :nu].transpose(1, 2)], dim=2)
+    X = torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, rhs, upper=False), upper=True)
+    u_free, W = states.u[:, :nu] + h * X[:, :, 0], X[:, :, 1:]
+    if P:
+        Jp = Jf[..., nu:].transpose(1, 2).reshape(Bn, P, 6, -1)
+        lin = Jp[:, :, 0:3] / model.mass[model.nb:, None, None]
+        ang = torch.einsum("bpij,bpjm->bpim", linalg3.inv3(I_w), Jp[:, :, 3:6])
+        W = torch.cat([W, torch.cat([lin, ang], dim=2).reshape(Bn, 6 * P, -1)], dim=1)
+        u_free = torch.cat([u_free, u_free_prop], dim=1)
+    u_new, _, body_forces = solver.solve_batched(model, contacts, J, W, u_free, h, cfg.solver)
+    return u_new, body_forces
+
+
+def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
+                     actions: torch.Tensor, kin: dynamics.Kin, contacts, gain_scale=None,
+                     mass_scale=None, gravity_scale=None, damping_scale=None,
+                     restitution=None, actor_scale=None):
+    h = cfg.dt / cfg.substeps
+    nu, rd, P = model.nu, model.root_dofs, model.num_props
+    Bn = actions.shape[0]
+
+    M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(
+        model, T.dyn, states, kin, T.diag, mass_scale=mass_scale, gravity_scale=gravity_scale,
+        damping_scale=damping_scale, actor_scale=actor_scale, diag_parts=T.diag_parts)
+
+    if cfg.torque_control:
+        tau = actions * model.motor_gear * cfg.power_scale
+    else:
+        tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h,
+                                          kd_scale=damping_scale)
+    limit = dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
+    if gain_scale is None:
+        tau = tau + limit
+    else:   # stiffness randomization scales the whole actuation torque
+        tau = tau * (gain_scale[:, None] if gain_scale.dim() == 1 else gain_scale) + limit
+    tau_full = torch.zeros(Bn, nu, device=actions.device)
+    tau_full[:, rd:] = tau
+    u_free_prop = I_w = None
+    if P:
+        u_free_prop, I_w = _free_props(model, states, h, gravity_scale)
+
+    contact_step = _aos_contact_step if cfg.solver.scheme == "pgs" else _zform_contact_step
+    u_new, body_forces = contact_step(model, cfg, T, states, contacts, M_bl, bias, Phi,
+                                      tau_full, u_free_prop, I_w, restitution)
 
     u_new = u_new.clone()
     u_new[:, rd:nu] = torch.clamp(u_new[:, rd:nu], -cfg.max_dof_vel, cfg.max_dof_vel)

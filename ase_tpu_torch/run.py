@@ -33,9 +33,22 @@ shipped one):
       --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \
       --llc_checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz
 
+The view-motion task plays the motion data back kinematically through
+the env (the check of a dataset; the policy's actions are ignored):
+
+  python -m ase_tpu_torch.run --test --task HumanoidViewMotion \
+      --cfg_env humanoid_ase_sword_shield.yaml \
+      --cfg_train train/rlg/ase_humanoid.yaml \
+      --motion_file data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml \
+      --checkpoint data/models/ase_llc_reallusion_sword_shield.ckpt.npz
+
 A train config with ``mixed_precision: true`` trains in bfloat16 (float32
 master weights and heads), and ``--randomize`` with an env config's
-``task.randomization_params`` block trains under domain randomization.
+``task.randomization_params`` block trains under domain randomization. An
+env config's ``solverScheme: pgs`` solves contacts by sequential
+Gauss-Seidel instead of block-Jacobi, and ``pdControl: false`` drives the
+joints by torque; a train config's ``network.enc.separate: true`` gives
+the ASE encoder an MLP of its own.
 ``--multi_gpu`` (or ``--horovod``, ``--multi_host``) trains data-parallel,
 one process per card, each stepping its share of ``numEnvs``:
 
@@ -112,10 +125,11 @@ def build_agent(argv=None, edit_cfg=None, mesh=None):
     return algos[algo](env, cfg_train, output_dir=args.output_path, mesh=mesh), args, cfg
 
 
-def build_player(argv=None):
-    """Parse ``argv`` (with ``--test``), build the env, agent and player,
-    and restore the checkpoint. Returns (player, cfg)."""
-    agent, args, cfg = build_agent(argv)
+def build_player(argv=None, edit_cfg=None):
+    """Parse ``argv`` (with ``--test``), build the env, agent and player
+    (``edit_cfg`` as in ``build_agent``), and restore the checkpoint.
+    Returns (player, cfg)."""
+    agent, args, cfg = build_agent(argv, edit_cfg=edit_cfg)
     if not args.test:
         raise ValueError("build_player needs --test")
     _, players = build_alg_runner()

@@ -125,7 +125,31 @@ Phases, each printed with its wall time against its budget:
 17. dr_check -- ``check_tick`` on DR_CHECK_ENVS of those envs with every
               knob away from its base (restitution and actor scale
               included), card against CPU.
-18. multi  -- data-parallel training: MULTI_RANKS ranks on the one card, a
+18. pgs    -- the ASE player with the shipped LLC on HumanoidAMP
+              (humanoid_ase_sword_shield.yaml) at PGS_ENVS envs, built twice
+              by ``run.build_player``: with ``solverScheme: pgs`` (the
+              sequential Gauss-Seidel contact solve over library Cholesky
+              factors and triangular solves), then as shipped (block-Jacobi),
+              each for PGS_STEPS control steps: exactly 0 launches of every
+              kernel on the PGS run and PGS_JACOBI_LAUNCHES of chol_forward2
+              and back_solve on the Jacobi run; finite obs, actions and
+              rewards, except in the envs whose PGS solve diverged, as the
+              reference's does (at most PGS_DIVERGED_SHARE of them); both
+              env-steps/s and their ratio, and each run's launches per
+              control step and device-busy share (one profiled step).
+19. pgs_check -- ``check_tick`` under the PGS scheme on PGS_CHECK_ENVS of
+              the PGS run's envs whose solve did not diverge, card against
+              CPU.
+20. viewmotion -- ``run.build_player`` with ``--test --task
+              HumanoidViewMotion`` (kinematic playback of the dataset under
+              torque control, one tick a control step) at VIEW_ENVS envs for
+              VIEW_STEPS control steps: exactly VIEW_LAUNCHES of chol_forward2
+              and back_solve; body positions finite and at or above -0.1 m;
+              env-steps/s. Then ``check_viewmotion``: one control step on
+              VIEW_CHECK_ENVS envs, card against CPU, body positions within
+              TICK_POS_TOL, and VIEW_QUERIES random motion-library queries'
+              frames, card against CPU, within the same.
+21. multi  -- data-parallel training: MULTI_RANKS ranks on the one card, a
               gloo group staging its collectives through host memory (NCCL
               refuses two ranks on one device), spawned as processes that
               each run ``run.build_agent(MULTI_ARGV, mesh=...)`` and
@@ -137,7 +161,7 @@ Phases, each printed with its wall time against its budget:
               weight checksums bit-equal; a rank that exits non-zero or
               outlives the phase budget fails it (and is killed). The global
               env-steps/s is printed beside the one-rank train and dr rates.
-19. nccl   -- a world-1 NCCL group in this process through
+22. nccl   -- a world-1 NCCL group in this process through
               ``parallel.mesh.init()``: all_reduce_sum, all_gather_rows and
               broadcast on CUDA tensors with known answers, then the group
               is destroyed.
@@ -170,11 +194,24 @@ HRL_TRAIN_EPOCHS = 1
 HRL_TRAIN_LAUNCHES = 32 * 5 * 2 * 2                # per epoch: horizon 32 decisions of 5 steps
 PERTURB_STEPS = 72
 PERTURB_LAUNCHES = PERTURB_STEPS * 2 * 2
+PGS_ENVS = 4096
+PGS_STEPS = 8
+PGS_JACOBI_LAUNCHES = PGS_STEPS * 2 * 2          # the Jacobi twin: 2 ticks x 2 substeps
+PGS_CHECK_ENVS = 8
+PGS_DIVERGED = 1e10              # an impulse (N s) no converging PGS solve reaches (the phase
+                                 # prints the largest the others reached); a diverging sweep
+                                 # passes it within one substep (tests/test_torch_pgs.py)
+PGS_DIVERGED_SHARE = 0.01        # ... the share of envs allowed to diverge in a run
+VIEW_ENVS = 4096
+VIEW_STEPS = 16
+VIEW_LAUNCHES = VIEW_STEPS * 1 * 2               # view motion: 1 tick x 2 substeps a step
+VIEW_CHECK_ENVS = 64
+VIEW_QUERIES = 65536
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
             "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "train_bf16": 150,
             "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
             "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60, "cache": 60,
-            "multi": 150, "nccl": 30}
+            "pgs": 120, "pgs_check": 60, "viewmotion": 90, "multi": 150, "nccl": 30}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -204,6 +241,15 @@ PERTURB_ARGV = [
     "--checkpoint", LLC,
     "--num_envs", "4096", "--seed", "0",
 ]
+PGS_ARGV = [
+    "--test", "--task", "HumanoidAMP",
+    "--cfg_env", "humanoid_ase_sword_shield.yaml",
+    "--cfg_train", "train/rlg/ase_humanoid.yaml",
+    "--motion_file", DATASET,
+    "--checkpoint", LLC,
+    "--seed", "0",
+]
+VIEW_ARGV = ["--test", "--task", "HumanoidViewMotion"] + PGS_ARGV[3:]
 HRL_CHECK_ENVS = 64
 HRL_MU_RTOL = 1e-4               # window card vs CPU: the HLC's mu and the first LLC actions,
 HRL_OBS_RTOL = 1e-3              # ... the first step's observations and rewards, of their scale
@@ -626,8 +672,9 @@ def check_tick(model, cfg, state, targets, knobs=None):
     Failed unless positions and rotations (of the props too) agree to
     TICK_POS_TOL and velocities to
     TICK_VEL_RTOL of their scale (the two devices sum float32 products in
-    different orders), or unless the card tick skipped the kernels. Returns
-    the max errors."""
+    different orders), or unless the card tick skipped the kernels (the
+    Jacobi scheme's chol_forward2 once a substep; the PGS scheme launches
+    none). Returns the max errors."""
     import torch
     from ase_tpu_torch.ops import chol
     from ase_tpu_torch.physics import engine
@@ -642,7 +689,8 @@ def check_tick(model, cfg, state, targets, knobs=None):
         out[dev] = engine.step_batched(m, cfg, engine.Tables(m, cfg), st, targets.to(dev),
                                        **kw).state
         launched = chol.LAUNCHES["chol_forward2"] - before
-        if launched != (cfg.substeps if dev == "cuda" else 0):
+        jacobi = cfg.solver.scheme == "jacobi"
+        if launched != (cfg.substeps if dev == "cuda" and jacobi else 0):
             raise Failed(f"tick on {dev} launched chol_forward2 {launched} times")
     torch.cuda.synchronize()
     errs = {}
@@ -1685,6 +1733,206 @@ def perturb_check_phase(player):
                env._pd_action_offset[None] + env._pd_action_scale[None] * act)
 
 
+def pgs_phase(card):
+    """The ASE player with the shipped LLC on HumanoidAMP at PGS_ENVS envs, built
+    twice through ``run.build_player``: with ``solverScheme: pgs`` set by
+    ``edit_cfg``, then as shipped (block-Jacobi), each for PGS_STEPS control
+    steps after its initial reset. The PGS run launches no Cholesky kernel,
+    the Jacobi run PGS_JACOBI_LAUNCHES of chol_forward2 and back_solve;
+    obs, actions and rewards stay finite, except, on the PGS run, in envs
+    whose contact solve diverged (an impulse past PGS_DIVERGED or
+    non-finite): the reference's PGS sweep has no divergence guard and
+    diverges on such states as the port does
+    (tests/test_torch_pgs.py::test_pgs_divergence_matches_reference); at
+    most PGS_DIVERGED_SHARE of the envs may. Returns (the PGS run's
+    launches, the PGS player, its envs whose solve diverged)."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.physics import solver
+
+    def pgs(cfg, cfg_train):
+        cfg["env"]["solverScheme"] = "pgs"
+
+    peak = None               # per env, the largest impulse of the run (inf once non-finite)
+    pgs_iterate = solver._pgs_iterate
+
+    def watched(*args):
+        lam = pgs_iterate(*args)
+        m = lam.abs().amax(dim=(1, 2))
+        torch.maximum(peak, torch.where(torch.isfinite(m), m, torch.full_like(m, math.inf)),
+                      out=peak)
+        return lam
+
+    rates, per_step, out = {}, {}, {}
+    for scheme, edit, n in (("pgs", pgs, 0), ("jacobi", None, PGS_JACOBI_LAUNCHES)):
+        t0 = time.time()
+        player, _ = run.build_player(PGS_ARGV + ["--num_envs", str(PGS_ENVS)], edit_cfg=edit)
+        env = player.env
+        if env.sim_cfg.solver.scheme != scheme or env.num_envs != PGS_ENVS:
+            raise Failed(f"pgs phase: scheme {env.sim_cfg.solver.scheme} at {env.num_envs} envs")
+        state = env.initial_state()
+        torch.cuda.synchronize()
+        setup = time.time() - t0
+        if peak is None:
+            peak = torch.zeros(PGS_ENVS, device=env.device)
+        chol.reset_launches()
+        solver._pgs_iterate = watched
+        t0 = time.time()
+        try:
+            player.run(num_steps=PGS_STEPS, max_chunks=1, env_state=state)
+            torch.cuda.synchronize()
+        finally:
+            solver._pgs_iterate = pgs_iterate
+        dt = time.time() - t0
+        launches = dict(chol.LAUNCHES)
+        want = {"chol_forward2": n, "back_solve": n, "chol_forward": 0}
+        if launches != want:
+            raise Failed(f"{scheme} launches {launches}, want {want}")
+        # the Jacobi run exempts no env
+        exempt = ~(peak <= PGS_DIVERGED) if scheme == "pgs" else torch.zeros_like(peak).bool()
+        es = player.env_state
+        for what, t in (("obs", es.obs), ("actions", player.last_actions),
+                        ("rewards", player.last_rewards.reshape(PGS_ENVS, -1))):
+            bad = ~torch.isfinite(t).all(dim=-1)
+            if bool((bad & ~exempt).any()):
+                raise Failed(f"{scheme}: non-finite {what} in envs whose contact solve did not "
+                             f"diverge: {torch.nonzero(bad & ~exempt)[:8, 0].tolist()}")
+        if scheme == "pgs":
+            diverged = exempt
+            share = float(diverged.float().mean())
+            print(f"pgs: the contact solve diverged in {int(diverged.sum())} of {PGS_ENVS} envs "
+                  f"({share:.4f}; envs {torch.nonzero(diverged)[:8, 0].tolist()}), "
+                  f"{int((~torch.isfinite(es.obs).all(-1)).sum())} of them non-finite after "
+                  f"the run; the largest impulse of the other envs' solves "
+                  f"{float(peak[~diverged].max()):.4g} N s", flush=True)
+            if share > PGS_DIVERGED_SHARE:
+                raise Failed(f"pgs: the contact solve diverged in {share:.4f} of the envs")
+        rates[scheme] = env.num_envs * PGS_STEPS / dt
+        print(f"{scheme}: {rates[scheme]:.1f} env-steps/s over {PGS_STEPS} control steps x "
+              f"{env.num_envs} envs ({dt:.2f} s; setup {setup:.1f} s); launches {launches} "
+              f"({card})", flush=True)
+        per_step[scheme] = profile_phase(player, card)
+        out[scheme] = (launches, player)
+        del player, env, es
+    print(f"pgs / jacobi env-steps/s: {rates['pgs']:.1f} / {rates['jacobi']:.1f} = "
+          f"{rates['pgs'] / rates['jacobi']:.4f} in one call ({card})", flush=True)
+    if None not in per_step.values():
+        print(f"pgs / jacobi kernel launches per control step: {per_step['pgs']:.0f} / "
+              f"{per_step['jacobi']:.0f} ({per_step['pgs'] - per_step['jacobi']:+.0f})", flush=True)
+    return out["pgs"] + (diverged,)
+
+
+def pgs_check_phase(player, diverged):
+    """check_tick under the PGS scheme on the first PGS_CHECK_ENVS of the
+    PGS player's envs whose contact solve did not diverge: their state
+    after the run and the targets of the player's last actions (a
+    diverging sweep turns rounding into impulses past PGS_DIVERGED; the
+    reference diverges there too)."""
+    import torch
+
+    env, es = player.env, player.env_state
+    idx = torch.nonzero(~diverged)[:PGS_CHECK_ENVS, 0]
+    st = type(es.phys)(*(x[idx] for x in es.phys))
+    _, tgt = env.pre_physics_step(es, player.last_actions[idx].clamp(-1, 1))
+    check_tick(env.model, env.sim_cfg, st, tgt)
+
+
+def viewmotion_phase(card):
+    """``run.build_player`` with ``--test --task HumanoidViewMotion`` (the
+    ASE player's configs, checkpoint and dataset) at VIEW_ENVS envs for
+    VIEW_STEPS control steps after its initial reset: exactly VIEW_LAUNCHES
+    of chol_forward2 and back_solve, none of chol_forward; body positions
+    finite and at or above -0.1 m (the reference's tests/test_env.py).
+    Then ``check_viewmotion``. Returns the launches."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+
+    t0 = time.time()
+    player, _ = run.build_player(VIEW_ARGV + ["--num_envs", str(VIEW_ENVS)])
+    env = player.env
+    if env.control_freq_inv != 1 or not env.sim_cfg.torque_control or env.num_envs != VIEW_ENVS:
+        raise Failed(f"viewmotion: control_freq_inv {env.control_freq_inv}, torque control "
+                     f"{env.sim_cfg.torque_control}, {env.num_envs} envs")
+    state = env.initial_state()
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+    chol.reset_launches()
+    t0 = time.time()
+    player.run(num_steps=VIEW_STEPS, max_chunks=1, env_state=state)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(chol.LAUNCHES)
+    want = {"chol_forward2": VIEW_LAUNCHES, "back_solve": VIEW_LAUNCHES, "chol_forward": 0}
+    if launches != want:
+        raise Failed(f"viewmotion launches {launches}, want {want} ({VIEW_STEPS} control steps "
+                     "x 1 tick x 2 substeps)")
+    es = player.env_state
+    low = float(es.body_pos[..., 2].min())
+    if not bool(torch.isfinite(es.body_pos).all()) or low < -0.1:
+        raise Failed(f"viewmotion: body positions non-finite or below -0.1 m (min z {low:.4f})")
+    print(f"viewmotion: {env.num_envs * VIEW_STEPS / dt:.1f} env-steps/s over {VIEW_STEPS} "
+          f"control steps x {env.num_envs} envs ({dt:.2f} s; setup {setup:.1f} s); min body z "
+          f"{low:.4f} m; clips {int(es.aux['motion_ids'].min())}..{int(es.aux['motion_ids'].max())}"
+          f"; launches {launches} ({card})", flush=True)
+
+    check_viewmotion(player)
+    return launches
+
+
+def check_viewmotion(player, device="cuda"):
+    """One view-motion control step (reset pass, step) on VIEW_CHECK_ENVS of
+    the player's envs, copied from the card into players built on
+    ``device`` and on the CPU: motion ids equal, body positions within
+    TICK_POS_TOL. Then VIEW_QUERIES random queries of the motion library
+    (the frames every reset and demo fetch reads): dof positions and the
+    FK body positions of those frames, card against CPU, within
+    TICK_POS_TOL. Near-identical frames take slerp's small-angle branch,
+    which a one-ulp change of the frames' dot product can flip: summed by a
+    reduction, whose order differs on the card, one step put a view-motion
+    env's bodies 7.49e-4 m apart, card against CPU."""
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.motion import motion_lib as ml
+    from ase_tpu_torch.physics import dynamics2
+
+    n, es = VIEW_CHECK_ENVS, player.env_state
+    idx = torch.arange(n, device=es.obs.device)
+    out = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        p, _ = run.build_player(VIEW_ARGV + ["--num_envs", str(n), "--device", dev])
+        st = p.env.reset_done(_env_state_to(es, idx, dev))
+        out[dev] = p.env.step(st, player.last_actions[:n].to(dev))
+    if not torch.equal(out[device].aux["motion_ids"].cpu(), out["cpu"].aux["motion_ids"]):
+        raise Failed("viewmotion check: card and CPU play different clips")
+    err = (out[device].body_pos.cpu() - out["cpu"].body_pos).abs().amax(dim=(1, 2))
+    print(f"  viewmotion check on {n} envs: body positions max abs err {float(err.max()):.3g} "
+          f"(tol {TICK_POS_TOL}), {int((out['cpu'].reset_buf > 0).sum())} envs at a clip's end")
+    if not float(err.max()) <= TICK_POS_TOL:
+        raise Failed(f"viewmotion check: card and CPU disagree on body positions: envs "
+                     f"{torch.nonzero(err > TICK_POS_TOL)[:, 0].tolist()}, max {float(err.max())}")
+
+    gen = torch.Generator().manual_seed(0)
+    lib = player.env._motion_lib
+    ids = torch.randint(0, lib.num_motions, (VIEW_QUERIES,), generator=gen)
+    times = torch.rand(VIEW_QUERIES, generator=gen) * lib.lengths.cpu()[ids]
+    out = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        env = player.env if dev == device else p.env
+        ms = ml.get_motion_state(env._motion_lib, ids.to(dev), times.to(dev))
+        kin = dynamics2.fk_batched(env.model, env._tables.dyn, env._ref_state_phys(ms))
+        out[dev] = (ms["dof_pos"].cpu(), kin.body_pos.cpu())
+    e_dof = float((out[device][0] - out["cpu"][0]).abs().max())
+    e_pos = (out[device][1] - out["cpu"][1]).abs().amax(dim=(1, 2))
+    print(f"  motion library, {VIEW_QUERIES} random queries: dof positions max abs err "
+          f"{e_dof:.3g}, their body positions {float(e_pos.max()):.3g} (tol {TICK_POS_TOL}), "
+          f"{int((e_pos > TICK_POS_TOL).sum())} queries beyond it")
+    if not float(e_pos.max()) <= TICK_POS_TOL:
+        raise Failed(f"motion library: card and CPU disagree on {int((e_pos > TICK_POS_TOL).sum())}"
+                     f" of {VIEW_QUERIES} queries, by up to {float(e_pos.max())} m")
+
+
 def cache_phase(card):
     """The native motion cache: delete the dataset's cache file, build the
     extension, then load the library twice (a miss, then a hit) on the
@@ -1936,6 +2184,12 @@ def main():
     phase("dr_check", lambda: dr_check_phase(dr_agent, dr_state), t_start)
     del dr_agent, dr_state
     torch.cuda.empty_cache()
+    pgs_launches, pgs_player, diverged = phase("pgs", lambda: pgs_phase(card), t_start)
+    phase("pgs_check", lambda: pgs_check_phase(pgs_player, diverged), t_start)
+    del pgs_player, diverged
+    torch.cuda.empty_cache()
+    view_launches = phase("viewmotion", lambda: viewmotion_phase(card), t_start)
+    torch.cuda.empty_cache()
     hits = ml.CACHE["hits"] - hits_before
     print(f"motion cache: {hits} later loads of the dataset in this process hit the cache "
           f"and took {t_warm:.3f} s each against {t_cold:.3f} s cold, ~{hits * (t_cold - t_warm):.2f} "
@@ -1963,7 +2217,8 @@ def main():
                     hrl_train_launches=hrl_train_launches[k],
                     perturb_launches=perturb_launches[k],
                     train_bf16_launches=train_bf16_launches[k], dr_launches=dr_launches[k],
-                    multi_launches=multi_launches[k], on_path=k != "chol_forward", **rows[k])
+                    multi_launches=multi_launches[k], pgs_launches=pgs_launches[k],
+                    viewmotion_launches=view_launches[k], on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

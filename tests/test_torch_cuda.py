@@ -10,6 +10,8 @@ Tolerance: 1e-4 of the largest magnitude of the plain result (the kernel
 contracts multiply-adds into FMAs the eager version rounds twice).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -166,6 +168,89 @@ def test_prop_tick_on_the_card_matches_the_cpu(cuda, task):
     act = torch.as_tensor(rng.uniform(-0.5, 0.5, (8, 31)).astype(np.float32))
     errs = chip_smoke.check_tick(model, cfg, st, act)
     assert set(errs) >= {"prop_pos", "prop_quat"}
+
+
+@pytest.mark.cuda
+def test_pgs_tick_on_the_card_matches_the_cpu(cuda):
+    """One engine tick at B = 8 under the PGS scheme (library Cholesky and
+    triangular solves, the sequential sweep), card vs CPU through
+    ``chip_smoke.check_tick``, which also holds the card tick to no
+    Cholesky kernel launch; the state as the Jacobi tick's test, in
+    contact."""
+    import chip_smoke
+    from ase_tpu_torch.physics import dynamics, engine, mjcf
+    from ase_tpu_torch.physics.solver import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    st = dynamics.default_state(model, 8)
+    st = st._replace(root_pos=st.root_pos + torch.tensor([0.0, 0.0, 0.85]),
+                     u=torch.as_tensor(rng.normal(size=(8, 37)).astype(np.float32)))
+    act = torch.as_tensor(rng.uniform(-1, 1, (8, 31)).astype(np.float32))
+    before = dict(chol.LAUNCHES)
+    chip_smoke.check_tick(model, engine.SimConfig(solver=SolverConfig(scheme="pgs")), st, act)
+    assert dict(chol.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_separate_encoder_forward_on_the_card_matches_the_cpu(cuda):
+    """The shipped ase_humanoid.yaml's ASE network at its full widths with
+    ``enc.separate`` (its enc units, 1024-1024-512): every head on the card
+    within 1e-4 of the CPU's largest magnitude (float32 products summed in
+    another order)."""
+    import yaml
+
+    from ase_tpu_torch.models import networks
+    from ase_tpu_torch.utils import paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(paths.data_path("cfg", "train/rlg/ase_humanoid.yaml")) as f:
+        params = yaml.safe_load(f)["params"]
+    params["network"]["enc"]["separate"] = True
+    net = networks.build_ase_network(params, 253, 31, 1400, 64)
+    assert net.enc_mlp is not None
+    rng = np.random.default_rng(3)
+    obs, amp = (torch.as_tensor(rng.normal(size=(256, d)).astype(np.float32)) for d in (253, 1400))
+    z = networks.normalize_latents(torch.as_tensor(rng.normal(size=(256, 64)).astype(np.float32)))
+
+    def heads(n, dev):
+        n = n.to(dev)
+        with torch.no_grad():
+            o, zz, a = obs.to(dev), z.to(dev), amp.to(dev)
+            return [n.eval_actor(o, zz)[0], n.eval_critic(o, zz), n.eval_disc(a), n.eval_enc(a)]
+
+    cpu = heads(net, "cpu")
+    for got, ref in zip(heads(copy.deepcopy(net), cuda), cpu):
+        assert float((got.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_motion_library_queries_on_the_card_match_the_cpu(cuda):
+    """4096 random queries of the 87-clip dataset on the card and on the
+    CPU: every field within 1e-5 (slerp decides its small-angle branch
+    from a dot product summed in one fixed order on every device; a
+    reduction sums in another order on the card, and one ulp of the dot
+    can flip the branch)."""
+    from ase_tpu_torch.motion import motion_lib as ml
+    from ase_tpu_torch.physics import mjcf
+    from ase_tpu_torch.utils import paths
+
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    path = paths.motion_file("reallusion_sword_shield/dataset_reallusion_sword_shield.yaml")
+    key_ids = [model.body_index(b) for b in ("right_hand", "left_hand", "right_foot",
+                                             "left_foot", "sword", "shield")]
+    libs = {dev: ml.load_motion_lib(path, model.dof_body_ids, model.dof_offsets, key_ids,
+                                    device=dev) for dev in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, libs["cpu"].num_motions, (4096,), generator=gen)
+    times = torch.rand(4096, generator=gen) * libs["cpu"].lengths[ids]
+    ref = ml.get_motion_state(libs["cpu"], ids, times)
+    got = ml.get_motion_state(libs["cuda"], ids.to(cuda), times.to(cuda))
+    for k in ref:
+        assert float((got[k].cpu() - ref[k]).abs().max()) <= 1e-5, k
 
 
 def _small_ase_agent(device, mixed_precision=False):

@@ -371,9 +371,8 @@ def test_humanoid_amp_under_the_whole_block_matches_reference():
 def test_randomize_trains_through_the_cli(tmp_path):
     """``--randomize`` with an env config holding the block: ``run.main``
     trains an AMP agent for two epochs on the CPU; every knob left its
-    base in some env and every env has reset at least once; the env
-    refuses torque control, and without ``--randomize`` the block is
-    ignored."""
+    base in some env and every env has reset at least once; without
+    ``--randomize`` the block is ignored."""
     from ase_tpu_torch import run
     from tests.test_torch_train_cli import _argv, _run_keep_agent
 

@@ -237,7 +237,8 @@ def test_fall_state_generation_runs_on_the_port(envs):
     assert not tparse("HumanoidAMPGetup", copy.deepcopy(cfg), device="cpu")._dr.enabled
     cfg["task"]["randomization_params"] = {"frequency": 2, "actions": {"range": [0.0, 0.02]}}
     assert tparse("HumanoidAMPGetup", cfg, device="cpu")._dr.enabled
-    with pytest.raises(NotImplementedError):
-        cfg = getup_cfg()
-        cfg["env"]["pdControl"] = False
-        tparse("HumanoidAMPGetup", cfg, device="cpu")
+    # torque control is ported: pdControl false builds a torque-control
+    # engine config with the env's power scale
+    cfg = getup_cfg(pdControl=False, powerScale=0.5)
+    sim_cfg = tparse("HumanoidAMPGetup", cfg, device="cpu").sim_cfg
+    assert sim_cfg.torque_control and sim_cfg.power_scale == 0.5

@@ -205,10 +205,16 @@ def test_task_env_matches_reference(task):
 
 
 def test_tasks_without_a_port_raise():
-    """View-motion, which forces torque control (``pdControl: false``),
-    names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*torque control"):
-        tparse("HumanoidViewMotion", task_cfg("HumanoidHeading"), device="cpu")
+    """Every task of the reference is ported: view-motion builds with the
+    config it forces (one tick a control step, torque control, no
+    self-collision) on a copy of the caller's, and plays its clips at the
+    configured control rate."""
+    cfg = task_cfg("HumanoidHeading")
+    env = tparse("HumanoidViewMotion", cfg, device="cpu")
+    assert env.control_freq_inv == 1 and math.isclose(env.dt, 1 / 60)
+    assert math.isclose(env._motion_dt, 1 / 30)
+    assert env.sim_cfg.torque_control and not env.sim_cfg.enable_self_collision
+    assert (cfg["env"]["controlFrequencyInv"], cfg["env"].get("pdControl", True)) == (2, True)
     assert math.isclose(tparse("HumanoidHeading", task_cfg("HumanoidHeading"),
                                device="cpu").dt, 1 / 30)
 
