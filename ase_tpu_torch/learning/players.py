@@ -12,13 +12,17 @@ discriminator's logit and reward, the ASE encoder reward, the HRL
 low-level controller's discriminator reward. ``AMPPlayer``, ``ASEPlayer``
 and ``HRLPlayer`` differ only in their probes: the latent schedule and the
 HRL window run inside the agent's ``_pre_rollout_step`` and ``_env_step``.
-Video capture is not ported yet.
+With ``video_path``, each player step (an HRL decision for the HRL player)
+keeps one env's body positions and task markers on the device; they are
+copied to the host once per chunk with the tallies and rendered to a video
+at the end.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -56,6 +60,16 @@ class CommonPlayer:
         env_state, rewards, _ = agent._env_step(env_state, actions)
         return env_state, roll, rewards, actions
 
+    _MARKER_KEYS = ("tar_dir", "tar_facing_dir", "tar_pos")
+
+    def _frame(self, env_state, env_id: int) -> Dict[str, torch.Tensor]:
+        """Env ``env_id``'s body positions and task markers (device copies)."""
+        frame = {"body_pos": env_state.body_pos[env_id].clone()}
+        for k in self._MARKER_KEYS:
+            if k in env_state.aux:
+                frame[k] = env_state.aux[k][env_id].clone()
+        return frame
+
     def _probe(self, env_state, roll) -> Dict[str, torch.Tensor]:
         """Model diagnostics on env 0's live state (0-d tensors); the AMP,
         ASE and HRL players add theirs."""
@@ -64,12 +78,19 @@ class CommonPlayer:
     @torch.no_grad()
     def run(self, num_steps: int = 300, games_num: Optional[int] = None, env_state=None,
             max_chunks: int = 100,
-            success_fn: Optional[Callable[[object], torch.Tensor]] = None):
+            success_fn: Optional[Callable[[object], torch.Tensor]] = None,
+            video_path: Optional[str] = None, video_env: int = 0,
+            video_max_frames: int = 900):
         """Play until ``games_num`` episodes finish (at most ``max_chunks``
         chunks of ``num_steps`` steps); returns the aggregate stats, with
         ``success_rate`` (end-of-episode successes per game),
         ``success_time_frac`` (the mean in-episode share of successful
-        steps) and, with ``debug_probes``, the last chunk's probes."""
+        steps) and, with ``debug_probes``, the last chunk's probes.
+
+        With ``video_path``, env ``video_env``'s body positions (and any
+        heading/location/strike task markers) after each step, at most
+        ``video_max_frames`` of them, are rendered to that file at the end
+        (``viz.plotter.render_rollout``: mp4, or gif without OpenCV)."""
         games_num = int(games_num if games_num is not None else self.games_num)
         if env_state is None:
             env_state = self.env.initial_state()
@@ -80,14 +101,18 @@ class CommonPlayer:
         succ = torch.zeros(B, device=dev)
         games, sums = 0, [0.0, 0.0, 0.0, 0.0]   # returns, lengths, end successes, time fracs
         probes: Dict[str, float] = {}
+        captured = []
 
         def done_sum(done, x):
             return torch.where(done, x, torch.zeros_like(x)).sum().to(torch.float32)
 
         for _ in range(max_chunks):
-            tallies = []
+            tallies, frames = [], []
+            capture = video_path is not None and len(captured) * num_steps < video_max_frames
             for _ in range(num_steps):
                 env_state, roll, rewards, actions = self._policy_step(env_state, roll)
+                if capture:
+                    frames.append(self._frame(env_state, video_env))
                 ret = ret + rewards
                 lens = lens + 1
                 if success_fn is not None:
@@ -102,6 +127,9 @@ class CommonPlayer:
                 ret = torch.where(done, torch.zeros_like(ret), ret)
                 lens = torch.where(done, torch.zeros_like(lens), lens)
                 succ = torch.where(done, torch.zeros_like(succ), succ)
+            if capture:
+                captured.append({k: torch.stack([f[k] for f in frames]).cpu().numpy()
+                                 for k in frames[0]})
             for c, *vals in torch.stack(tallies).cpu().tolist():
                 if c > 0:
                     games += int(c)
@@ -116,6 +144,17 @@ class CommonPlayer:
                 print("probe: " + " ".join(f"{k}: {v:.4f}" for k, v in probes.items()))
             if games >= games_num:
                 break
+
+        if captured:
+            from ase_tpu_torch.viz.plotter import render_rollout
+
+            merged = {k: np.concatenate([c[k] for c in captured])[:video_max_frames]
+                      for k in captured[0]}
+            written = render_rollout(
+                self.env.model.parents, merged.pop("body_pos"), markers=merged,
+                fps=1.0 / float(self.env.dt), save_path=video_path,
+                title=self.agent.config.get("name", ""))
+            print(f"rollout video written: {written}")
 
         self.env_state, self.roll = env_state, roll
         self.last_actions, self.last_rewards = actions, rewards

@@ -1,6 +1,6 @@
-"""Skeleton trees and host-side numpy kinematics for the motion loader
-(port of the parts of ``ase_tpu/motion/skeleton.py`` that
-``motion_lib.load_motion_lib`` reads).
+"""Skeleton trees, forward kinematics on tensors and host-side numpy
+kinematics for the motion loader and the mocap tools (port of
+``ase_tpu/motion/skeleton.py``).
 
 The on-disk ``.npy`` format is the reference ``Serializable`` dict layout,
 so the vendored ASE motion assets load unchanged.
@@ -9,9 +9,12 @@ so the vendored ASE motion assets load unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ase_tpu_torch.ops import quat as rot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +74,48 @@ class SkeletonTree:
             new_local.append(offset)
         tree = SkeletonTree(tuple(names), tuple(new_parent), np.stack(new_local))
         return tree, np.asarray(keep)
+
+
+def fk(
+    tree: SkeletonTree,
+    local_rotation: torch.Tensor,
+    root_translation: torch.Tensor,
+    local_translation: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward kinematics on the inputs' device.
+
+    local_rotation: (..., J, 4) xyzw, root_translation: (..., 3).
+    Returns (global_rotation (..., J, 4), global_translation (..., J, 3)):
+    a child's global rotation is its parent's times its local one, its
+    position the parent's plus the parent-rotated local offset.
+    """
+    if local_translation is None:
+        local_translation = torch.as_tensor(tree.local_translation,
+                                            device=local_rotation.device)
+    grs, gts = [], []
+    for j in range(tree.num_joints):
+        p = tree.parent_indices[j]
+        lr = local_rotation[..., j, :]
+        if p == -1:
+            grs.append(lr)
+            gts.append(root_translation)
+        else:
+            grs.append(rot.quat_mul(grs[p], lr))
+            gts.append(gts[p] + rot.quat_rotate(grs[p], local_translation[..., j, :]))
+    return torch.stack(grs, dim=-2), torch.stack(gts, dim=-2)
+
+
+def global_to_local(tree: SkeletonTree, global_rotation: torch.Tensor) -> torch.Tensor:
+    """Inverse of the rotation part of ``fk``."""
+    lrs = []
+    for j in range(tree.num_joints):
+        p = tree.parent_indices[j]
+        gr = global_rotation[..., j, :]
+        if p == -1:
+            lrs.append(gr)
+        else:
+            lrs.append(rot.quat_mul(rot.quat_conjugate(global_rotation[..., p, :]), gr))
+    return torch.stack(lrs, dim=-2)
 
 
 def np_global_to_local(tree: SkeletonTree, global_rotation: np.ndarray) -> np.ndarray:

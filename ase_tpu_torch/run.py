@@ -54,9 +54,11 @@ one process per card, each stepping its share of ``numEnvs``:
 
   torchrun --nproc_per_node=<cards> -m ase_tpu_torch.run --multi_gpu ...
 
-(with ``--device cpu``, on gloo). ``--test`` ignores those flags;
-``--save_video`` is not ported yet and raises. Without a card the command
-raises unless ``--device cpu`` is given.
+(with ``--device cpu``, on gloo). ``--test`` ignores those flags.
+``--test --save_video rollout.mp4`` also renders env 0's rollout to that
+file (mp4 through OpenCV, else a gif through PIL; matplotlib draws the
+frames). Without a card the command raises unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -88,9 +90,6 @@ def build_agent(argv=None, edit_cfg=None, mesh=None):
     from ase_tpu_torch.utils import config as cfg_util
 
     args = cfg_util.get_args(argv)
-    if args.save_video:
-        raise NotImplementedError("--save_video: the viz tools are not ported yet "
-                                  "(ROADMAP.md, queue 1: motion tooling)")
     if args.test:
         mesh = None
     elif mesh is None and (args.multi_gpu or args.horovod or args.multi_host):
@@ -154,10 +153,11 @@ def main(argv=None, num_steps: Optional[int] = None, max_chunks: int = 100):
     """Train (the default) or, with ``--test``, play."""
     from ase_tpu_torch.utils import config as cfg_util
 
-    if cfg_util.get_args(argv).test:
+    args = cfg_util.get_args(argv)
+    if args.test:
         player, cfg = build_player(argv)
         return player.run(num_steps=num_steps or cfg["env"]["episodeLength"],
-                          max_chunks=max_chunks)
+                          max_chunks=max_chunks, video_path=args.save_video or None)
     agent, args, _ = build_agent(argv)
     writer = None
     if args.bench:    # training throughput only: no writer, no periodic saves

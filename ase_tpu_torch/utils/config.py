@@ -3,8 +3,8 @@
 The flags of the player (``--test``) and of training, with the
 reference's names. ``--multi_gpu``, ``--horovod`` and ``--multi_host``
 each train data-parallel in the process group torchrun starts;
-``--save_video`` parses, and ``run.py`` refuses it until the viz tools are
-ported. ``--device`` replaces the reference's ``--rl_device``: the port
+``--save_video`` (with ``--test``) renders env 0's rollout to a video.
+``--device`` replaces the reference's ``--rl_device``: the port
 runs on ``cuda`` unless told otherwise.
 """
 
@@ -64,7 +64,7 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bench", action="store_true",
                    help="Benchmark mode: no TensorBoard writer, no checkpoint saves")
     p.add_argument("--save_video", type=str, default="",
-                   help="With --test: render env 0's rollout (not ported yet)")
+                   help="With --test: render env 0's rollout to this mp4 (or gif) file")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device; the port runs on the card unless 'cpu' is given")
     args = p.parse_args(argv)

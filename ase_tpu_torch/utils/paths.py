@@ -44,8 +44,13 @@ def motion_file(rel: str) -> str:
 
 
 DATASET_YAML = "reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
+IDLE_CLIP = "reallusion_sword_shield/RL_Avatar_Idle_Ready_Motion.npy"
 
 
 def default_dataset() -> str:
     return motion_file(DATASET_YAML)
+
+
+def default_clip() -> str:
+    return motion_file(IDLE_CLIP)
 

@@ -12,9 +12,10 @@ Phases, each printed with its wall time against its budget:
               shape and occupancy (at n=37 at least 32 warps per SM for
               chol_forward, 8 for back_solve).
 3. kernels -- every kernel of the player path held against its plain
-              PyTorch version on the card at four sizes (the engine's
-              n=37, m=72, m2=1, B=4096; the factor-dominated m=1 at
-              B=4096; a ragged B=129; n=8), with its
+              PyTorch version on the card at five sizes (the engine's
+              n=37, m=72, m2=1, B=4096; the AMP humanoid's n=34 at the same
+              m, m2 and B, the kernels' generic instance; the
+              factor-dominated m=1 at B=4096; a ragged B=129; n=8), with its
               device time, its bound, the plain version's device time and a
               library yardstick's (CUDA events around a CUDA graph of 20
               calls, so host work in a wrapper cannot enter a time). These
@@ -23,7 +24,7 @@ Phases, each printed with its wall time against its budget:
               the engine's shape, and back_solve at every size, on calls
               that rotate over copies of the inputs holding more than
               COLD_BYTES, so each call finds L2 cold, as in the engine,
-              where other work runs between the calls.
+              where other work runs between the calls (at n=37 and n=34).
 4. cache   -- the native motion cache: the file ``_cache_path`` names for
               the dataset yaml with the engine's dof ids is deleted, the
               extension built (g++, timed), and the library loaded twice on
@@ -149,7 +150,31 @@ Phases, each printed with its wall time against its budget:
               VIEW_CHECK_ENVS envs, card against CPU, body positions within
               TICK_POS_TOL, and VIEW_QUERIES random motion-library queries'
               frames, card against CPU, within the same.
-21. multi  -- data-parallel training: MULTI_RANKS ranks on the one card, a
+21. savevideo -- ``run.main`` with the hrl phase's argv and
+              ``--save_video`` (a temporary directory) at 4096 envs for
+              HRL_DECISIONS decisions: the player keeps env 0's body
+              positions and heading markers on the card, one frame a
+              decision, copied to the host once per chunk; exactly
+              HRL_DECISIONS frames reach the renderer, with finite markers,
+              the last bit-equal to the player's final state; exactly
+              SAVEVIDEO_LAUNCHES of chol_forward2 and back_solve; the
+              env-steps/s beside the hrl phase's and their ratio. Where
+              matplotlib imports the video file must be written (its render
+              time printed); where it does not, that is printed and nothing
+              is rendered.
+22. mocap  -- in a temporary directory: ``tools.fbx_importer`` on the
+              vendored CMU FBX at 60 fps, bit-equal to the vendored import;
+              ``tools.retarget_motion`` onto the AMP humanoid; the clip's
+              ``skeleton.fk`` on the card within FK_POS_TOL of ``np_fk`` and
+              ``global_to_local`` of it within FK_ROT_TOL of the input
+              rotations (up to sign); HumanoidAMP on humanoid.yaml (15
+              bodies, nu = 34) on that clip at MOCAP_ENVS envs behind
+              ``VecEnv``: ``reset()`` and MOCAP_STEPS random steps, exactly
+              MOCAP_LAUNCHES of chol_forward2 and back_solve, finite
+              observations and AMP observations and a demo fetch; then
+              ``check_vec_step``: one step on MOCAP_CHECK_ENVS envs, card
+              against CPU, within ``check_tick``'s tolerances.
+23. multi  -- data-parallel training: MULTI_RANKS ranks on the one card, a
               gloo group staging its collectives through host memory (NCCL
               refuses two ranks on one device), spawned as processes that
               each run ``run.build_agent(MULTI_ARGV, mesh=...)`` and
@@ -161,7 +186,7 @@ Phases, each printed with its wall time against its budget:
               weight checksums bit-equal; a rank that exits non-zero or
               outlives the phase budget fails it (and is killed). The global
               env-steps/s is printed beside the one-rank train and dr rates.
-22. nccl   -- a world-1 NCCL group in this process through
+24. nccl   -- a world-1 NCCL group in this process through
               ``parallel.mesh.init()``: all_reduce_sum, all_gather_rows and
               broadcast on CUDA tensors with known answers, then the group
               is destroyed.
@@ -207,11 +232,28 @@ VIEW_STEPS = 16
 VIEW_LAUNCHES = VIEW_STEPS * 1 * 2               # view motion: 1 tick x 2 substeps a step
 VIEW_CHECK_ENVS = 64
 VIEW_QUERIES = 65536
+SAVEVIDEO_LAUNCHES = HRL_DECISIONS * 5 * 2 * 2     # the hrl phase's run, one frame a decision
+MOCAP_FBX = "data/poselib/09_11_cmu.fbx"
+MOCAP_IMPORTED = "data/poselib/09_11_cmu_imported.npy"   # the vendored 60 fps import
+RETARGET_CFG = "data/retarget_cfg/retarget_cmu_to_amp.json"
+MOCAP_ENVS = 4096
+MOCAP_STEPS = 16
+MOCAP_LAUNCHES = MOCAP_STEPS * 2 * 2             # 2 ticks x 2 substeps a control step
+MOCAP_CHECK_ENVS = 8
+FK_POS_TOL = 1e-5                # fk on the card vs np_fk: positions (m)
+FK_ROT_TOL = 1e-6                # ... rotations, and global_to_local(fk) vs the input, up to sign
+MOCAP_ARGV = [
+    "--task", "HumanoidAMP",
+    "--cfg_env", "humanoid.yaml",
+    "--cfg_train", "train/rlg/amp_humanoid.yaml",
+    "--num_envs", str(MOCAP_ENVS), "--seed", "0",
+]
 BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile": 60,
             "check": 60, "hrl": 240, "hrl_check": 120, "train": 300, "train_bf16": 150,
             "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
             "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60, "cache": 60,
-            "pgs": 120, "pgs_check": 60, "viewmotion": 90, "multi": 150, "nccl": 30}
+            "pgs": 120, "pgs_check": 60, "viewmotion": 90, "multi": 150, "nccl": 30,
+            "savevideo": 90, "mocap": 90}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -492,8 +534,9 @@ def kernels_phase():
     from ase_tpu_torch.ops import chol
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
-    for (n, m, m2, B) in ((37, 72, 1, 4096), (37, 1, 1, 4096), (37, 72, 1, 129), (8, 1, 1, 256)):
+    rows, rows34 = {}, {}
+    for (n, m, m2, B) in ((37, 72, 1, 4096), (34, 72, 1, 4096), (37, 1, 1, 4096),
+                          (37, 72, 1, 129), (8, 1, 1, 256)):
         M, R, R2 = _spd(torch, n, m, m2, B, gen)
         L, Y, Y2 = chol.chol_forward(M, R, R2)
         L1, Y1 = chol.chol_forward(M, R)
@@ -522,7 +565,7 @@ def kernels_phase():
             "back_solve": (cuda_ms(torch, lambda: chol.back_solve(L, Y2)),
                            cuda_ms(torch, lambda: chol.back_solve_plain(L, Y2), 5)),
         }
-        engine = (n, m, m2, B) == (37, 72, 1, 4096)
+        engine = (m, m2, B) == (72, 1, 4096) and n in (37, 34)
         cold = {"back_solve": cold_ms(torch, chol.back_solve, (L, Y2), work["back_solve"][0])}
         if engine:
             cold["chol_forward2"] = cold_ms(torch, chol.chol_forward, (M, R, R2),
@@ -558,11 +601,16 @@ def kernels_phase():
                    "library_ms": lib[k]}
             print(f"kernel {k} n={n} m={m} m2={m2} B={B}: " + json.dumps(row), flush=True)
             if engine:
-                rows[k] = row
-    print("kernels (n=37, m=72, m2=1, B=4096): " + "; ".join(
-        f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
-        f"{r['bound_ms'] / r['cold_ms']:.2f} of it cold; plain {r['plain_ms']:.3f}, "
-        f"library {r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})" for k, r in rows.items()))
+                (rows if n == 37 else rows34)[k] = row
+    for n, rs in ((37, rows), (34, rows34)):
+        print(f"kernels (n={n}, m=72, m2=1, B=4096): " + "; ".join(
+            f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['cold_ms']:.2f} of it cold; plain {r['plain_ms']:.3f}, "
+            f"library {r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})"
+            for k, r in rs.items()))
+    for k, r in rows.items():
+        r["amp_humanoid"] = {f: rows34[k][f] for f in ("ms", "cold_ms", "plain_ms", "library_ms",
+                                                       "max_abs_err", "bound_ms")}
     return rows
 
 
@@ -719,7 +767,7 @@ def check_phase(player):
 def hrl_phase(card, argv, obs_dim, decisions, name):
     """An HRL player (the heading or the strike controller over the shipped
     LLC) at 4096 envs for ``decisions`` decisions; returns the launch
-    counts of the run and the player."""
+    counts of the run, the player and its env-steps/s."""
     import torch
     from ase_tpu_torch import run
     from ase_tpu_torch.ops import chol
@@ -775,14 +823,15 @@ def hrl_phase(card, argv, obs_dim, decisions, name):
                      f"{tuple(player.last_actions.shape)}")
     task_r, disc_r, succ = torch.stack(window).mean(0).tolist()
     steps = decisions * agent._llc_steps
-    print(f"{name}: {env.num_envs * steps / dt:.1f} env-steps/s ({decisions / dt:.2f} decisions/s) "
+    rate = env.num_envs * steps / dt
+    print(f"{name}: {rate:.1f} env-steps/s ({decisions / dt:.2f} decisions/s) "
           f"over {decisions} decisions x {agent._llc_steps} control steps x {env.num_envs} envs "
           f"({dt:.2f} s); mean task reward {task_r:.4f}, mean windowed LLC disc reward "
           f"{disc_r:.4f}, llc_disc_reward probe (env 0) {stats['llc_disc_reward']:.4f}"
           + (f"; successes at a window's end {succ:.4f} (mean over decisions), success rate "
              f"of finished games {stats['success_rate']:.4f} over {stats['episodes']} games"
              if "successes" in es.aux else "") + f" ({card})", flush=True)
-    return launches, player
+    return launches, player, rate
 
 
 def _env_state_to(state, idx, device):
@@ -1933,6 +1982,244 @@ def check_viewmotion(player, device="cuda"):
                      f" of {VIEW_QUERIES} queries, by up to {float(e_pos.max())} m")
 
 
+def savevideo_phase(card, hrl_rate):
+    """``run.main`` with HRL_ARGV and ``--save_video`` at 4096 envs for
+    HRL_DECISIONS decisions: the player keeps env 0's body positions and
+    heading markers after each decision on the card and copies them to the
+    host once per chunk. The renderer receives exactly HRL_DECISIONS
+    frames with finite markers, the last bit-equal to the player's final
+    state; the run launches exactly SAVEVIDEO_LAUNCHES of chol_forward2 and
+    back_solve. Its env-steps/s is printed beside the hrl phase's. Where
+    matplotlib imports, the video file must be written; where it does not,
+    that is printed and nothing is rendered (the CPU tests hold the
+    rendering). Returns the launches."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from ase_tpu_torch import run
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.viz import plotter
+
+    can_render = importlib.util.find_spec("matplotlib") is not None
+    seen = {}
+    build, render = run.build_player, plotter.render_rollout
+
+    def build_and_time(argv, edit_cfg=None):
+        player, cfg = build(argv, edit_cfg)
+        play = player.run
+
+        def timed(**kw):
+            state = player.env.initial_state()
+            torch.cuda.synchronize()
+            chol.reset_launches()
+            seen["t0"] = time.time()
+            return play(env_state=state, **kw)
+
+        player.run = timed
+        seen["player"] = player
+        return player, cfg
+
+    def record(parents, body_pos, **kw):
+        torch.cuda.synchronize()
+        seen["t_steps"] = time.time() - seen["t0"]
+        seen["launches"] = dict(chol.LAUNCHES)
+        seen.update(parents=parents, body_pos=body_pos, **kw)
+        if not can_render:
+            return kw["save_path"] + " (not rendered: matplotlib does not import)"
+        t0 = time.time()
+        written = render(parents, body_pos, **kw)
+        seen["t_render"] = time.time() - t0
+        seen["size"] = os.path.getsize(written) if os.path.exists(written) else 0
+        return written
+
+    def play(out_dir):
+        run.main(HRL_ARGV + ["--num_envs", "4096", "--save_video",
+                             os.path.join(out_dir, "heading.mp4")],
+                 num_steps=HRL_DECISIONS, max_chunks=1)
+
+    run.build_player, plotter.render_rollout = build_and_time, record
+    try:
+        _in_temp_dir("smoke_video_", play)
+    finally:
+        run.build_player, plotter.render_rollout = build, render
+    player = seen["player"]
+    frames, markers = seen["body_pos"], seen["markers"]
+    if frames.shape != (HRL_DECISIONS, player.env.model.nb, 3):
+        raise Failed(f"savevideo: {frames.shape} frames, want ({HRL_DECISIONS}, "
+                     f"{player.env.model.nb}, 3)")
+    if set(markers) != {"tar_dir", "tar_facing_dir"} or not all(
+            m.shape == (HRL_DECISIONS, 2) and np.isfinite(m).all() for m in markers.values()):
+        raise Failed(f"savevideo: markers {({k: v.shape for k, v in markers.items()})}, want "
+                     "finite tar_dir and tar_facing_dir, one a frame")
+    if not np.array_equal(frames[-1], player.env_state.body_pos[0].cpu().numpy()):
+        raise Failed("savevideo: the last frame is not the player's final state of env 0")
+    launches = seen["launches"]
+    want = {"chol_forward2": SAVEVIDEO_LAUNCHES, "back_solve": SAVEVIDEO_LAUNCHES,
+            "chol_forward": 0}
+    if launches != want:
+        raise Failed(f"savevideo launches {launches}, want {want}")
+    rate = player.env.num_envs * HRL_DECISIONS * player.agent._llc_steps / seen["t_steps"]
+    if can_render:
+        if not seen["size"] > 0:
+            raise Failed("savevideo: no video file was written")
+        video = f"video rendered in {seen['t_render']:.2f} s ({seen['size']} bytes)"
+    else:
+        video = ("matplotlib does not import on this host: no video rendered, the capture "
+                 "checked (the CPU tests hold the rendering)")
+    print(f"savevideo: {rate:.1f} env-steps/s against the hrl phase's {hrl_rate:.1f} "
+          f"(ratio {rate / hrl_rate:.4f}) over {HRL_DECISIONS} decisions x "
+          f"{player.agent._llc_steps} control steps x {player.env.num_envs} envs "
+          f"({seen['t_steps']:.2f} s); {HRL_DECISIONS} frames, launches {launches}; {video} "
+          f"({card})", flush=True)
+    return launches
+
+
+def mocap_phase(card):
+    """The mocap workflow in a temporary directory: ``tools.fbx_importer``
+    on the vendored CMU clip at 60 fps (bit-equal to the vendored import),
+    ``tools.retarget_motion`` onto the AMP humanoid, ``skeleton.fk`` of
+    the retargeted clip on the card against ``np_fk`` and
+    ``global_to_local`` of it against the input rotations; then HumanoidAMP
+    (humanoid.yaml, 15 bodies, nu = 34) on that clip at MOCAP_ENVS envs
+    behind ``VecEnv``: ``reset()``, MOCAP_STEPS steps of random actions
+    (exactly MOCAP_LAUNCHES of chol_forward2 and back_solve, at n = 34),
+    finite observations, a demo fetch; then ``check_vec_step``. Returns the
+    launches."""
+    return _in_temp_dir("smoke_mocap_", lambda out_dir: _mocap(card, out_dir))
+
+
+def _mocap(card, out_dir):
+    import numpy as np
+    import torch
+    from ase_tpu_torch.envs import parse_task
+    from ase_tpu_torch.envs.vec_env import VecEnv
+    from ase_tpu_torch.motion import motion_lib as ml
+    from ase_tpu_torch.motion import skeleton as sk
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.tools import fbx_importer, retarget_motion
+    from ase_tpu_torch.utils import config as cfg_util
+
+    t0 = time.time()
+    imported = os.path.join(out_dir, "09_11_cmu.npy")
+    fbx_importer.main(["--fbx", MOCAP_FBX, "--out", imported, "--fps", "60"])
+    got, want = (np.load(p, allow_pickle=True).item() for p in (imported, MOCAP_IMPORTED))
+    for k in ("rotation", "root_translation", "global_velocity", "global_angular_velocity"):
+        if not np.array_equal(got[k]["arr"], want[k]["arr"]):
+            raise Failed(f"mocap: the import's {k} differs from {MOCAP_IMPORTED}")
+    gtree, vtree = (sk.SkeletonTree.from_dict(d["skeleton_tree"]) for d in (got, want))
+    if (gtree.node_names, gtree.parent_indices, got["fps"]) != \
+            (vtree.node_names, vtree.parent_indices, want["fps"]) or \
+            not np.array_equal(gtree.local_translation, vtree.local_translation):
+        raise Failed(f"mocap: the import's skeleton or fps differs from {MOCAP_IMPORTED}")
+    t_import = time.time() - t0
+    t0 = time.time()
+    clip = os.path.join(out_dir, "09_11_cmu_amp.npy")
+    retarget_motion.main(["--config", RETARGET_CFG, "--source", imported, "--output", clip])
+    t_retarget = time.time() - t0
+
+    tree, lr, root, _, _, _ = ml.load_motion_npy(clip)
+    grs, gts = sk.fk(tree, torch.as_tensor(lr, device="cuda"),
+                     torch.as_tensor(root, device="cuda"))
+    back = sk.global_to_local(tree, grs).cpu().numpy()
+    ngr, ngt = sk.np_fk(tree, lr, root)
+    e_pos = float(np.abs(gts.cpu().numpy() - ngt).max())
+    e_rot = float(np.abs(grs.cpu().numpy() - ngr).max())
+    sign = np.where(np.sum(back * lr, axis=-1, keepdims=True) < 0, -1.0, 1.0)
+    e_back = float(np.abs(back * sign - lr).max())
+    print(f"mocap: import {t_import:.2f} s ({got['rotation']['arr'].shape[0]} frames, "
+          f"{got['rotation']['arr'].shape[1]} joints, bit-equal "
+          f"to {MOCAP_IMPORTED}), retarget {t_retarget:.2f} s ({lr.shape[0]} frames, "
+          f"{lr.shape[1]} joints); fk on the card vs np_fk: positions {e_pos:.3g} m (tol "
+          f"{FK_POS_TOL}), rotations {e_rot:.3g}, global_to_local(fk) vs the input {e_back:.3g} "
+          f"(tol {FK_ROT_TOL})", flush=True)
+    if not (e_pos <= FK_POS_TOL and e_rot <= FK_ROT_TOL and e_back <= FK_ROT_TOL):
+        raise Failed(f"mocap: fk on the card off np_fk or the input rotations: {e_pos}, "
+                     f"{e_rot}, {e_back}")
+
+    t0 = time.time()
+    cfg, _ = cfg_util.load_cfg(cfg_util.get_args(MOCAP_ARGV + ["--motion_file", clip]))
+    env = parse_task(cfg["name"], cfg, device="cuda")
+    vec = VecEnv(env)
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+    if (env.model.nb, env.model.nu, env.num_envs) != (15, 34, MOCAP_ENVS):
+        raise Failed(f"mocap: {env.model.nb} bodies, nu = {env.model.nu}, {env.num_envs} envs")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    na = env.get_action_size()
+    chol.reset_launches()
+    t0 = time.time()
+    obs = vec.reset()
+    for _ in range(MOCAP_STEPS):
+        actions = torch.rand(MOCAP_ENVS, na, generator=gen, device="cuda") * 2 - 1
+        obs, rew, done, info = vec.step(actions)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(chol.LAUNCHES)
+    demo = vec.fetch_amp_obs_demo(MOCAP_ENVS)
+    want = {"chol_forward2": MOCAP_LAUNCHES, "back_solve": MOCAP_LAUNCHES, "chol_forward": 0}
+    if launches != want:
+        raise Failed(f"mocap launches {launches}, want {want} ({MOCAP_STEPS} steps x 2 ticks "
+                     "x 2 substeps; the reset steps no engine)")
+    amp = env.amp_obs_size()
+    for what, t, shape in (("obs", obs, (MOCAP_ENVS, env.get_obs_size())),
+                           ("amp_obs", info["amp_obs"], (MOCAP_ENVS, amp)),
+                           ("demo", demo, (MOCAP_ENVS, amp)), ("rewards", rew, (MOCAP_ENVS,))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise Failed(f"mocap: {what} of shape {tuple(t.shape)} (want {shape}) or non-finite")
+    print(f"mocap: HumanoidAMP on the retargeted clip, {MOCAP_ENVS} envs: "
+          f"{MOCAP_ENVS * MOCAP_STEPS / dt:.1f} env-steps/s over {MOCAP_STEPS} steps after a "
+          f"reset ({dt:.2f} s; setup {setup:.1f} s); obs {tuple(obs.shape)}, amp_obs "
+          f"{tuple(info['amp_obs'].shape)}, {int(done.sum())} envs done, mean reward "
+          f"{float(rew.mean()):.4f}; launches {launches} ({card})", flush=True)
+
+    idx = torch.arange(MOCAP_CHECK_ENVS, device="cuda")
+    check_vec_step(cfg, vec.state, idx, actions[:MOCAP_CHECK_ENVS])
+    return launches
+
+
+def check_vec_step(cfg, state, idx, actions, device="cuda"):
+    """One ``VecEnv.step`` of the task ``cfg`` names on rows ``idx`` of
+    ``state``, copied into adapters built from ``cfg`` on ``device`` and on
+    the CPU, float32 contact solve on both sides: positions and rotations
+    within TICK_POS_TOL, velocities within TICK_VEL_RTOL of their scale (as
+    ``check_tick``, over one control step of ``controlFrequencyInv``
+    ticks); the card's step launches chol_forward2 and back_solve once a
+    substep. Returns the max errors."""
+    import copy
+
+    import torch
+    from ase_tpu_torch.envs import parse_task
+    from ase_tpu_torch.envs.vec_env import VecEnv
+    from ase_tpu_torch.ops import chol
+
+    out = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        c = copy.deepcopy(cfg)
+        c["env"]["numEnvs"] = int(idx.shape[0])
+        env = parse_task(c["name"], c, device=dev)
+        env.sim_cfg = env.sim_cfg._replace(solver=env.sim_cfg.solver._replace(matvec_bf16=False))
+        vec = VecEnv(env)
+        vec.state = _env_state_to(state, idx, dev)
+        before = dict(chol.LAUNCHES)
+        vec.step(actions.to(dev))
+        ticks = env.control_freq_inv * env.sim_cfg.substeps if torch.device(dev).type == "cuda" \
+            else 0
+        launched = {k: chol.LAUNCHES[k] - before[k] for k in before}
+        if launched != {"chol_forward2": ticks, "back_solve": ticks, "chol_forward": 0}:
+            raise Failed(f"VecEnv step on {dev} launched {launched}")
+        out[dev] = vec.state
+    errs = {}
+    for name in ("root_pos", "root_quat", "joint_q", "hinge_q", "u"):
+        a, b = getattr(out[device].phys, name).cpu(), getattr(out["cpu"].phys, name)
+        errs[name] = float((a - b).abs().max())
+        tol = TICK_VEL_RTOL * max(1.0, float(b.abs().max())) if name == "u" else TICK_POS_TOL
+        print(f"  VecEnv step check {name}: max abs err {errs[name]:.3g} (tol {tol:.3g})")
+        if not errs[name] <= tol:
+            raise Failed(f"VecEnv step: card and CPU disagree on {name}: {errs[name]} > {tol}")
+    return errs
+
+
 def cache_phase(card):
     """The native motion cache: delete the dataset's cache file, build the
     extension, then load the library twice (a miss, then a hit) on the
@@ -2156,7 +2443,7 @@ def main():
     phase("check", lambda: check_phase(player), t_start)
     del player
     torch.cuda.empty_cache()
-    hrl_launches, hrl_player = phase("hrl", lambda: hrl_phase(
+    hrl_launches, hrl_player, hrl_rate = phase("hrl", lambda: hrl_phase(
         card, HRL_ARGV + ["--num_envs", "4096"], 258, HRL_DECISIONS, "hrl"), t_start)
     phase("hrl_check", lambda: check_hrl(hrl_player), t_start)
     del hrl_player
@@ -2167,7 +2454,7 @@ def main():
                          t_start)
     del fall_states
     torch.cuda.empty_cache()
-    strike_launches, strike_player = phase("strike", lambda: hrl_phase(
+    strike_launches, strike_player, _ = phase("strike", lambda: hrl_phase(
         card, STRIKE_ARGV + ["--test", "--checkpoint", STRIKE_HLC], 268, STRIKE_DECISIONS,
         "strike"), t_start)
     phase("strike_profile", lambda: strike_profile_phase(strike_player, card), t_start)
@@ -2189,6 +2476,10 @@ def main():
     del pgs_player, diverged
     torch.cuda.empty_cache()
     view_launches = phase("viewmotion", lambda: viewmotion_phase(card), t_start)
+    torch.cuda.empty_cache()
+    video_launches = phase("savevideo", lambda: savevideo_phase(card, hrl_rate), t_start)
+    torch.cuda.empty_cache()
+    mocap_launches = phase("mocap", lambda: mocap_phase(card), t_start)
     torch.cuda.empty_cache()
     hits = ml.CACHE["hits"] - hits_before
     print(f"motion cache: {hits} later loads of the dataset in this process hit the cache "
@@ -2218,7 +2509,8 @@ def main():
                     perturb_launches=perturb_launches[k],
                     train_bf16_launches=train_bf16_launches[k], dr_launches=dr_launches[k],
                     multi_launches=multi_launches[k], pgs_launches=pgs_launches[k],
-                    viewmotion_launches=view_launches[k], on_path=k != "chol_forward", **rows[k])
+                    viewmotion_launches=view_launches[k], savevideo_launches=video_launches[k],
+                    mocap_launches=mocap_launches[k], on_path=k != "chol_forward", **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

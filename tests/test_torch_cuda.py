@@ -253,6 +253,88 @@ def test_motion_library_queries_on_the_card_match_the_cpu(cuda):
         assert float((got[k].cpu() - ref[k]).abs().max()) <= 1e-5, k
 
 
+@pytest.mark.cuda
+def test_skeleton_fk_on_the_card_matches_the_cpu(cuda):
+    """``skeleton.fk`` (tree and per-pose local translations) and
+    ``global_to_local`` of 4096 random poses of the AMP humanoid's skeleton
+    on the card and on the CPU: rotations within 1e-6, positions within
+    1e-5 m (``chip_smoke``'s FK_ROT_TOL and FK_POS_TOL); the outputs stay
+    on the card."""
+    import chip_smoke
+    from ase_tpu_torch.motion import importers
+    from ase_tpu_torch.motion import skeleton as sk
+    from ase_tpu_torch.utils import paths
+
+    tree, _, _ = importers.generate_amp_humanoid_tpose(
+        paths.data_path("assets", "mjcf", "amp_humanoid.xml"))
+    rng = np.random.default_rng(6)
+    J = tree.num_joints
+    q = rng.normal(size=(4096, J, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    root = rng.normal(size=(4096, 3)).astype(np.float32)
+    lt = (tree.local_translation + 0.05 * rng.normal(size=(4096, J, 3))).astype(np.float32)
+    for local in (None, lt):
+        args = [q, root] + ([] if local is None else [local])
+        ref = sk.fk(tree, *(torch.as_tensor(a) for a in args))
+        got = sk.fk(tree, *(torch.as_tensor(a, device=cuda) for a in args))
+        assert all(t.device.type == "cuda" for t in got)
+        for a, b, tol in zip(got, ref, (chip_smoke.FK_ROT_TOL, chip_smoke.FK_POS_TOL)):
+            assert float((a.cpu() - b).abs().max()) <= tol
+        back = sk.global_to_local(tree, got[0])
+        assert float((back.cpu() - sk.global_to_local(tree, ref[0])).abs().max()) <= \
+            chip_smoke.FK_ROT_TOL
+
+
+def _amp_humanoid_cfg(tmp_path, num_envs, device):
+    """The mocap workflow's env config: the vendored CMU clip imported and
+    retargeted onto the AMP humanoid by the port's tools (into
+    ``tmp_path``), HumanoidAMP on humanoid.yaml and amp_humanoid.yaml."""
+    import chip_smoke
+    from ase_tpu_torch.tools import fbx_importer, retarget_motion
+    from ase_tpu_torch.utils import config as cfg_util
+
+    imported, clip = str(tmp_path / "cmu.npy"), str(tmp_path / "cmu_amp.npy")
+    fbx_importer.main(["--fbx", chip_smoke.MOCAP_FBX, "--out", imported, "--fps", "60"])
+    retarget_motion.main(["--config", chip_smoke.RETARGET_CFG, "--source", imported,
+                          "--output", clip])
+    cfg, _ = cfg_util.load_cfg(cfg_util.get_args(
+        chip_smoke.MOCAP_ARGV + ["--motion_file", clip, "--num_envs", str(num_envs),
+                                 "--device", device]))
+    return cfg
+
+
+def _amp_humanoid_state(cfg, steps=4):
+    """A CPU ``VecEnv`` on ``cfg`` after a reset and ``steps`` random steps,
+    and the actions of one more."""
+    from ase_tpu_torch.envs import parse_task
+    from ase_tpu_torch.envs.vec_env import VecEnv
+
+    vec = VecEnv(parse_task(cfg["name"], copy.deepcopy(cfg), device="cpu"))
+    vec.reset()
+    gen = torch.Generator().manual_seed(0)
+    n, na = vec.task.num_envs, vec.task.get_action_size()
+    for _ in range(steps):
+        vec.step(torch.rand(n, na, generator=gen) * 2 - 1)
+    return vec, torch.rand(n, na, generator=gen) * 2 - 1
+
+
+@pytest.mark.cuda
+def test_vec_env_step_on_amp_humanoid_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """One ``VecEnv`` step of HumanoidAMP on the AMP humanoid (nu = 34, the
+    Cholesky kernels' generic instance) at 8 envs, card vs CPU from the
+    same state, through ``chip_smoke.check_vec_step`` (positions to 5e-5,
+    velocities to 1e-4 of scale; 4 launches of each kernel on the card)."""
+    import chip_smoke
+    from ase_tpu_torch.utils import paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.chdir(paths.repo_root())
+    cfg = _amp_humanoid_cfg(tmp_path, 8, "cpu")
+    vec, act = _amp_humanoid_state(cfg)
+    assert vec.task.model.nu == 34
+    chip_smoke.check_vec_step(cfg, vec.state, torch.arange(8), act)
+
+
 def _small_ase_agent(device, mixed_precision=False):
     """An ASEAgent on 8 HumanoidAMPGetup envs with small widths (32-16,
     latent 8): the config of tests/test_learning.py's TRAIN_CFG, in float32
@@ -476,3 +558,18 @@ def test_bf16_minibatch_check_catches_a_wrong_gradient(small_bf16_cpu_agent, mon
     monkeypatch.setattr(chip_smoke, "_twin", scaled)
     with pytest.raises(chip_smoke.Failed, match="beyond their bounds: disc_logits.weight"):
         chip_smoke.check_minibatch_bf16(small_bf16_cpu_agent, rows=64, seed=64, device="cpu")
+
+
+def test_vec_step_check_passes_on_the_cpu(tmp_path, monkeypatch):
+    """``chip_smoke.check_vec_step`` with its card side on the CPU: the
+    state carried into fresh adapters steps identically, and the CPU side
+    launches no kernel."""
+    import chip_smoke
+    from ase_tpu_torch.utils import paths
+
+    torch.set_num_threads(1)
+    monkeypatch.chdir(paths.repo_root())
+    cfg = _amp_humanoid_cfg(tmp_path, 4, "cpu")
+    vec, act = _amp_humanoid_state(cfg, steps=2)
+    errs = chip_smoke.check_vec_step(cfg, vec.state, torch.arange(1, 4), act[1:], device="cpu")
+    assert set(errs.values()) == {0.0}

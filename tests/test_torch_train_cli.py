@@ -86,8 +86,10 @@ def test_cli_resumes_a_run(tmp_path, capsys):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     argv = _argv(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.build_agent(argv + ["--save_video", "x.mp4", "--device", "cpu"])
+    # --save_video is ported: the player renders with it (tests/test_torch_viz.py),
+    # and training ignores it, as the reference's run.py does
+    _, args, _ = run.build_agent(argv + ["--save_video", "x.mp4", "--device", "cpu"])
+    assert args.save_video == "x.mp4" and not args.test
     # data-parallel training is ported: outside torchrun its flags name it
     for flag in ("--multi_gpu", "--horovod", "--multi_host"):
         with pytest.raises(RuntimeError, match="torchrun"):
