@@ -56,6 +56,16 @@ def compute_humanoid_observations_max(body_pos, body_rot, body_vel, body_ang_vel
                       local_body_vel, local_body_ang_vel], dim=-1)
 
 
+def compute_humanoid_observations(root_pos, root_rot, root_vel, root_ang_vel, dof_pos,
+                                  dof_vel, key_body_pos, local_root_obs: bool,
+                                  root_height_obs: bool, dof_offsets):
+    """The reduced observation (the reference's ``obs.py:83``): the AMP
+    layout of ``build_amp_observations``."""
+    return build_amp_observations(root_pos, root_rot, root_vel, root_ang_vel, dof_pos,
+                                  dof_vel, key_body_pos, local_root_obs, root_height_obs,
+                                  dof_offsets)
+
+
 def build_amp_observations(root_pos, root_rot, root_vel, root_ang_vel, dof_pos,
                            dof_vel, key_body_pos, local_root_obs: bool,
                            root_height_obs: bool, dof_offsets):

@@ -218,6 +218,15 @@ def _npz(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def load_dict(path: str) -> dict:
+    """Every array of a checkpoint by key (``checkpoint.py:67``); ``path``
+    may leave out the ``.npz`` of a file that has it."""
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path) as data:
+        return dict(data)
+
+
 def save(path: str, leaves: Mapping[str, Leaf], exclude: tuple = (), write: bool = True) -> str:
     """Write the leaves whose key contains none of ``exclude`` to an npz
     (``.npz`` is appended when missing); returns the file's path. With

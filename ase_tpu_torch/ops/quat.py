@@ -48,11 +48,24 @@ def quat_mul(a, b):
     return torch.stack([x, y, z, w], dim=-1)
 
 
+def quat_mul_norm(a, b):
+    return quat_unit(quat_mul(a, b))
+
+
 def quat_rotate(q, v):
     qvec = q[..., 0:3]
     w = q[..., 3:4]
     t = 2.0 * _cross(qvec, v)
     return v + w * t + _cross(qvec, t)
+
+
+def quat_rotate_inverse(q, v):
+    return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_abs_positive(q):
+    """Flip the sign so that w >= 0 (the canonical hemisphere)."""
+    return q * torch.where(q[..., 3:4] < 0.0, -1.0, 1.0)
 
 
 def normalize_angle(x):
@@ -112,6 +125,17 @@ def quat_to_tan_norm(q):
     return torch.cat([tan, norm], dim=-1)
 
 
+def quat_from_euler_xyz(roll, pitch, yaw):
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    qw = cy * cr * cp + sy * sr * sp
+    qx = cy * sr * cp - sy * cr * sp
+    qy = cy * cr * sp + sy * sr * cp
+    qz = sy * cr * cp - cy * sr * sp
+    return torch.stack([qx, qy, qz, qw], dim=-1)
+
+
 def quat_to_rotation_matrix(q):
     x, y, z, w = q.unbind(-1)
     xx, yy, zz = x * x, y * y, z * z
@@ -126,6 +150,31 @@ def quat_to_rotation_matrix(q):
         dim=-1,
     )
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_from_rotation_matrix(m):
+    """(...,3,3) -> (...,4) xyzw: of the four Shepperd candidates, the one
+    with the largest pivot."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1.0 + tr, min=_EPS)) / 2.0
+    qx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=_EPS)) / 2.0
+    qy = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=_EPS)) / 2.0
+    qz = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=_EPS)) / 2.0
+    c0 = torch.stack([(m21 - m12) / (4.0 * qw), (m02 - m20) / (4.0 * qw),
+                      (m10 - m01) / (4.0 * qw), qw], dim=-1)
+    c1 = torch.stack([qx, (m01 + m10) / (4.0 * qx),
+                      (m02 + m20) / (4.0 * qx), (m21 - m12) / (4.0 * qx)], dim=-1)
+    c2 = torch.stack([(m01 + m10) / (4.0 * qy), qy,
+                      (m12 + m21) / (4.0 * qy), (m02 - m20) / (4.0 * qy)], dim=-1)
+    c3 = torch.stack([(m02 + m20) / (4.0 * qz), (m12 + m21) / (4.0 * qz),
+                      qz, (m10 - m01) / (4.0 * qz)], dim=-1)
+    idx = torch.argmax(torch.stack([qw, qx, qy, qz], dim=-1), dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)                   # (..., 4, 4)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))
+    return quat_unit(q[..., 0, :])
 
 
 def slerp(q0, q1, t):
@@ -180,3 +229,9 @@ def quat_integrate_local(q, omega_local, dt):
     """Integrate by angular velocity expressed in the child (local) frame."""
     dq = exp_map_to_quat(omega_local * dt)
     return quat_unit(quat_mul(q, dq))
+
+
+def quat_diff_rad(a, b):
+    """Angle of the relative rotation between two quaternions."""
+    d = quat_mul(a, quat_conjugate(b))
+    return 2.0 * torch.acos(torch.clamp(torch.abs(d[..., 3]), 0.0, 1.0))

@@ -34,13 +34,19 @@ ignores it, as the reference's does) and the actor's geometric scale (FK,
 dynamics and the humanoid's geoms). A knob left at None costs nothing;
 the Cholesky systems stay n = nu whatever the knobs.
 
-Left out of the port, as the reference keeps them only for A/B work: the
-AoS dynamics, FK, PD and collision oracles and the ``ASE_TPU_*_AOS`` /
-``ASE_TPU_COLLISION_PER_SUBSTEP`` switches.
+``step`` is the reference's one-env form (a batch of one through
+``step_batched``, so on the card it launches the kernels at B = 1);
+``make_batched_step`` and ``batch_default_state`` are its batched
+helpers. The AoS oracles (``dynamics.fk``, ``compute_dynamics``,
+``pd_torques``, ``limit_torques``, ``collision2.detect``) are held against
+the tick's parts in the tests and ``chip_smoke.py``, never switched into
+it: the reference's ``ASE_TPU_*_AOS`` and ``ASE_TPU_COLLISION_PER_SUBSTEP``
+A/B switches are left out.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -311,3 +317,37 @@ def step_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
         dof_forces=tau,
         kin=kin,
     )
+
+
+# -- the one-env form and the batched helpers ----------------------------------
+
+def _unbatch(x):
+    if isinstance(x, tuple):
+        return type(x)(*(_unbatch(y) for y in x))
+    return x[0]
+
+
+def step(model: M.Model, cfg: SimConfig, tables: Tables, state: State, action: torch.Tensor,
+         friction_scale=1.0, gain_scale=1.0) -> StepOut:
+    """One sim tick of one env: ``state`` and ``action`` (nd,) carry no
+    batch dim; they go through ``step_batched`` as a batch of one, and the
+    outputs come back without it. A scale of 1.0 is no randomization."""
+    dev = action.device
+
+    def knob(x):
+        return None if isinstance(x, (int, float)) and x == 1.0 else \
+            torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(1)
+
+    states = State(*(x[None] for x in state))
+    out = step_batched(model, cfg, tables, states, action[None],
+                       friction_scale=knob(friction_scale), gain_scale=knob(gain_scale))
+    return _unbatch(out)
+
+
+def make_batched_step(model: M.Model, cfg: SimConfig):
+    """(states, actions (B, nd)) -> StepOut, over this model's tables."""
+    return partial(step_batched, model, cfg, Tables(model, cfg))
+
+
+def batch_default_state(model: M.Model, batch: int) -> State:
+    return dynamics.default_state(model, batch)

@@ -1,12 +1,14 @@
-"""Component-grouped contact pipeline (port of ``ase_tpu/physics/solver2.py``:
-``contact_jacobian_t_bl``, ``jacobi_lambda`` and ``body_forces_from_lambda``).
+"""Component-grouped contact pipeline (port of ``ase_tpu/physics/solver2.py``).
 
 The transposed contact Jacobian is built in the batch-last (nu, 3K, B)
 layout the Cholesky kernel takes, its 3K columns grouped by contact-frame
 component [normals | t1 | t2]; per-contact 3x3 block quantities live in
 (B, K) component tensors. The free props' block ``JT_prop`` (B, 6 np, 3K)
 is built with ops over a props axis, so its launch count does not grow
-with the number of props.
+with the number of props. ``contact_jacobian_t`` and ``solve_batched_t``
+are the reference's batch-first forms, which the engine does not run: the
+tests hold the batch-last builder against the first, and the first
+against the reference.
 """
 
 from __future__ import annotations
@@ -76,6 +78,34 @@ def contact_jacobian_t_bl(model: M.Model, contacts: Contacts, Phi: torch.Tensor,
     return JT, _jacobian_t_prop(model, contacts, prop_pos, (n, t1, t2))
 
 
+def contact_jacobian_t(model: M.Model, contacts: Contacts, Phi: torch.Tensor,
+                       Amask: torch.Tensor, origin: torch.Tensor,
+                       prop_pos: torch.Tensor) -> torch.Tensor:
+    """JT (B, nv, 3K) batch-first, columns grouped [n | t1 | t2], the props'
+    rows after the articulation's (``solver2.py:60``)."""
+    nb = model.nb
+    n, t1, t2 = _basis_comps(contacts.normal)
+    lever = tuple(contacts.pos[..., k] - origin[:, k:k + 1] for k in range(3))
+    Pa = tuple(Phi[..., k] for k in range(3))           # (B, nu) angular
+    Pl = tuple(Phi[..., 3 + k] for k in range(3))       # linear
+
+    ar = torch.arange(nb, device=Phi.device)
+    oh_a = (contacts.body_a[..., None] == ar).to(torch.float32)     # (B, K, nb)
+    oh_b = (contacts.body_b[..., None] == ar).to(torch.float32)
+    mdiff = torch.einsum("bkc,cv->bvk", oh_a - oh_b, Amask)         # (B, nu, K)
+
+    def art_block(b):
+        c = _cross(lever, b)
+        core = sum(Pl[x][:, :, None] * b[x][:, None, :] + Pa[x][:, :, None] * c[x][:, None, :]
+                   for x in range(3))
+        return mdiff * core
+
+    JT = torch.cat([art_block(n), art_block(t1), art_block(t2)], dim=2)
+    if model.num_props == 0:
+        return JT
+    return torch.cat([JT, _jacobian_t_prop(model, contacts, prop_pos, (n, t1, t2))], dim=1)
+
+
 def _jacobian_t_prop(model: M.Model, contacts: Contacts, prop_pos: torch.Tensor, basis):
     """(B, 6 np, 3K): for prop p the rows [lin x, y, z | ang x, y, z], each
     3K long in the [n | t1 | t2] column order, signed +1 where the prop is
@@ -109,6 +139,21 @@ def _inv3_comps(D):
         (Bc * inv_det, (a * i - c * g) * inv_det, (c * d - a * f) * inv_det),
         (C * inv_det, (b * g - a * h) * inv_det, (a * e - b * d) * inv_det),
     )
+
+
+def solve_batched_t(model: M.Model, contacts: Contacts, JT: torch.Tensor, W: torch.Tensor,
+                    u_free: torch.Tensor, dt: float, cfg: SolverConfig):
+    """The contact solve on a batch-first JT and W = M^-1 J^T, both (B, nv,
+    3K) component-grouped (``solver2.py:215``). Returns (u_new (B, nv),
+    lam (B, K, 3), body_forces (B, nb + np, 3))."""
+    A = torch.einsum("bvi,bvj->bij", JT, W)
+    v0f = torch.einsum("bvi,bv->bi", JT, u_free)
+    lam_f = jacobi_lambda(contacts, A, v0f, dt, cfg)
+    u_new = u_free + torch.einsum("bvj,bj->bv", W, lam_f)
+    body_forces = body_forces_from_lambda(model, contacts, lam_f, dt)
+    K = contacts.depth.shape[1]
+    lam = torch.stack([lam_f[:, :K], lam_f[:, K:2 * K], lam_f[:, 2 * K:]], dim=-1)
+    return u_new, lam, body_forces
 
 
 def jacobi_lambda(contacts: Contacts, A: torch.Tensor, v0f: torch.Tensor,

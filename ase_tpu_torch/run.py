@@ -96,15 +96,7 @@ def build_agent(argv=None, edit_cfg=None, mesh=None):
         from ase_tpu_torch.parallel import mesh as mesh_lib
 
         mesh = mesh_lib.init(device=args.device)
-    device = mesh.device if mesh is not None else torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port runs on the card (or pass --device cpu)")
-        # the reference pins float32 products to full precision, and its
-        # bfloat16 products accumulate in float32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = cfg_util.torch_device(mesh.device if mesh is not None else args.device)
     cfg, cfg_train = cfg_util.load_cfg(args)
     if edit_cfg is not None:
         edit_cfg(cfg, cfg_train)

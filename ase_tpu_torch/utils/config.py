@@ -16,6 +16,7 @@ import random
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 import yaml
 
 from ase_tpu_torch.utils import paths
@@ -119,3 +120,18 @@ def set_seed(seed: int) -> int:
     random.seed(seed)
     np.random.seed(seed)
     return seed
+
+
+def torch_device(device) -> torch.device:
+    """``device`` as a torch.device, the card's checked and set to the
+    reference's precision: float32 products in full float32 (no TF32),
+    bfloat16 products accumulated in float32. The port runs on the card
+    unless the CPU is asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card (or pass --device cpu)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return dev

@@ -15,7 +15,9 @@ Phases, each printed with its wall time against its budget:
               PyTorch version on the card at five sizes (the engine's
               n=37, m=72, m2=1, B=4096; the AMP humanoid's n=34 at the same
               m, m2 and B, the kernels' generic instance; the
-              factor-dominated m=1 at B=4096; a ragged B=129; n=8), with its
+              factor-dominated m=1 at B=4096; a ragged B=129; n=8; the
+              one-env engine.step's B=1 at n=37, m=72; the pendulum's n=1,
+              m=9, B=1), with its
               device time, its bound, the plain version's device time and a
               library yardstick's (CUDA events around a CUDA graph of 20
               calls, so host work in a wrapper cannot enter a time). These
@@ -24,7 +26,9 @@ Phases, each printed with its wall time against its budget:
               the engine's shape, and back_solve at every size, on calls
               that rotate over copies of the inputs holding more than
               COLD_BYTES, so each call finds L2 cold, as in the engine,
-              where other work runs between the calls (at n=37 and n=34).
+              where other work runs between the calls (at n=37 and n=34;
+              B=1 is timed warm only: a cold rotation would need ~33,000
+              copies of its inputs).
 4. cache   -- the native motion cache: the file ``_cache_path`` names for
               the dataset yaml with the engine's dof ids is deleted, the
               extension built (g++, timed), and the library loaded twice on
@@ -44,6 +48,25 @@ Phases, each printed with its wall time against its budget:
 6. check   -- one engine tick on 8 of those envs, on the card (kernels) and
               on the CPU (plain versions), must agree within the tolerances
               of ``check_tick`` (shared with tests/test_torch_cuda.py).
+6b. oracle -- the AoS oracles against the batched forms the engine runs,
+              both on the card, at ORACLE_ENVS random poses
+              (tests/test_dynamics2.py's states): ``dynamics.fk`` against
+              ``dynamics2.fk_batched``, ``compute_dynamics`` against
+              ``compute_dynamics_batch_last`` (M and bias to 2e-5 of scale,
+              Phi to 1e-5), ``pd_torques`` and ``limit_torques`` against the
+              joint-batched forms, ``collision2.detect`` against
+              ``collision3.detect_batched`` at K = 24 (sorted depths to 2e-5;
+              normal, position and friction to 1e-4 at matching depth ranks,
+              but for ORACLE_ATTR_SHARE of them, held to 1e-3: the normals
+              of deep, near-concentric self-penetrations round to ~1e-4
+              over so many poses). Then the
+              one-env ``engine.step`` (B = 1) for ORACLE_TICKS ticks from a
+              perturbed standing pose, each tick card against CPU at
+              ``check_tick``'s tolerances, exactly 2 x ORACLE_TICKS launches
+              of chol_forward2 and back_solve; and the reference's pendulum
+              (one hinge on a fixed base: n = 1) for PENDULUM_TICKS ticks on
+              the card, its period within 5% of the analytic one and its
+              late amplitude within 10% of its early one.
 7. hrl     -- ``ase_tpu_torch.run``'s player on HumanoidHeading: the shipped
               heading high-level controller (1024-512) over the shipped
               low-level controller at 4096 envs, for one chunk of
@@ -57,8 +80,9 @@ Phases, each printed with its wall time against its budget:
               CPU, from the same state and goal draws.
 8. train   -- ``ase_tpu_torch.run``'s training branch with the shipped
               ase_humanoid.yaml at its full widths and 4096 envs for
-              TRAIN_EPOCHS epoch (only the epoch count is cut): per epoch
-              the wall time with its rollout/update split, training
+              TRAIN_EPOCHS epoch (only the epoch count is cut; the player
+              phase's fall states reused): per epoch the wall time with its
+              rollout/update split, training
               env-steps/s, the losses, the Cholesky kernels' launches
               (exactly 128 each: 32 steps x 2 ticks x 2 substeps; counters
               zeroed after construction) and peak device memory. Every
@@ -78,13 +102,20 @@ Phases, each printed with its wall time against its budget:
               launches each), and the directory is deleted.
 9. train_bf16 -- the same training branch under ``mixed_precision: true``
               (bfloat16 dense layers over float32 parameters and heads) for
-              TRAIN_BF16_EPOCHS epoch, the train phase's fall states reused:
-              exactly TRAIN_LAUNCHES of each kernel, finite metrics, every
+              TRAIN_BF16_EPOCHS epoch of CUT_HORIZON steps, the train phase's
+              fall states reused: exactly CUT_LAUNCHES of each kernel, finite
+              metrics, every
               weight changed, the actor's activations bfloat16 on the card
               and the parameters float32. Then ``check_minibatch_bf16``:
               one full-width 256-row update on the card and on the CPU, both
               bf16, the card on the CPU's relu gates, at the bounds its
               docstring derives from bf16 rounding.
+9b. evalskills -- ``tools.eval_llc_skills.main`` with the shipped LLC
+              (EVALSKILLS_ARGV: 256 latents x 16 steps on HumanoidAMP, 256
+              getup envs x 32 steps from the train phase's fall states, so
+              no 150-tick drop): finite stats, 256 latents, some fall
+              states, exactly EVALSKILLS_LAUNCHES of chol_forward2 and
+              back_solve; the stats printed as JSON.
 10. strike -- ``ase_tpu_torch.run``'s player on HumanoidStrike: the shipped
               strike high-level controller over the shipped low-level
               controller at 4096 envs (one free prop each, the target box),
@@ -100,8 +131,9 @@ Phases, each printed with its wall time against its budget:
               the plane, so prop contacts are always present).
 13. hrl_train -- ``ase_tpu_torch.run``'s training branch on HumanoidStrike
               with the shipped hrl_humanoid.yaml at its widths (1024-512)
-              over the shipped LLC, 4096 envs, HRL_TRAIN_EPOCHS epoch (only
-              the epoch count is cut): exactly HRL_TRAIN_LAUNCHES of each
+              over the shipped LLC, 4096 envs, HRL_TRAIN_EPOCHS epoch of
+              HRL_TRAIN_HORIZON decisions (only the epoch count and the
+              horizon are cut): exactly HRL_TRAIN_LAUNCHES of each
               kernel, finite losses, every HLC weight changed, the LLC
               bit-equal to its checkpoint, peak device memory; then the
               final checkpoint resumed into a new agent (``run.build_agent
@@ -118,8 +150,9 @@ Phases, each printed with its wall time against its budget:
               on humanoid_ase_sword_shield.yaml with ase_humanoid.yaml and
               ``--randomize``, the block of ``dr_block()`` (frequency 2,
               every knob and both noises on), 4096 envs, through the
-              constructors ``run.build_agent`` uses: exactly TRAIN_LAUNCHES
-              of each kernel, finite metrics, every knob away from its base
+              constructors ``run.build_agent`` uses, an epoch of CUT_HORIZON
+              steps: exactly CUT_LAUNCHES of each kernel, finite metrics,
+              every knob away from its base
               in some env, every env reset at least once; then one control
               step (reset pass, actor, two ticks) profiled with the
               randomizer on and off: the launches the knobs add.
@@ -181,7 +214,7 @@ Phases, each printed with its wall time against its budget:
               ``agent.train``: one epoch of ase_humanoid.yaml at its full
               widths on HumanoidAMP (the dr phase's env without the
               randomizer) at MULTI_ENVS envs in all. Each rank must launch
-              exactly TRAIN_LAUNCHES of chol_forward2 and back_solve and no
+              exactly CUT_LAUNCHES (horizon CUT_HORIZON) of chol_forward2 and back_solve and no
               chol_forward, every metric must be finite and the ranks'
               weight checksums bit-equal; a rank that exits non-zero or
               outlives the phase budget fails it (and is killed). The global
@@ -213,14 +246,19 @@ FALL_LAUNCHES = 150 * 2          # fall-state drop: 150 ticks x 2 substeps
 TOTAL_BUDGET_S = 570
 TRAIN_EPOCHS = 1
 TRAIN_LAUNCHES = 32 * 2 * 2      # per epoch: horizon 32 x 2 ticks x 2 substeps
-HRL_DECISIONS = 16
-STRIKE_DECISIONS = 16
+CUT_HORIZON = 16                 # the train_bf16, dr and multi epochs' horizon (the shipped
+                                 # 32 before the oracle and evalskills phases came)
+CUT_LAUNCHES = CUT_HORIZON * 2 * 2
+HRL_DECISIONS = 8                # 16 before the oracle and evalskills phases came
+STRIKE_DECISIONS = 8             # 16 before the oracle and evalskills phases came
 HRL_TRAIN_EPOCHS = 1
-HRL_TRAIN_LAUNCHES = 32 * 5 * 2 * 2                # per epoch: horizon 32 decisions of 5 steps
-PERTURB_STEPS = 72
+HRL_TRAIN_HORIZON = 16           # decisions an epoch (the shipped 32 before the oracle and
+                                 # evalskills phases came)
+HRL_TRAIN_LAUNCHES = HRL_TRAIN_HORIZON * 5 * 2 * 2 # per epoch: decisions of 5 control steps
+PERTURB_STEPS = 68               # 72 before the oracle and evalskills phases came
 PERTURB_LAUNCHES = PERTURB_STEPS * 2 * 2
 PGS_ENVS = 4096
-PGS_STEPS = 8
+PGS_STEPS = 4                    # 8 before the oracle and evalskills phases came
 PGS_JACOBI_LAUNCHES = PGS_STEPS * 2 * 2          # the Jacobi twin: 2 ticks x 2 substeps
 PGS_CHECK_ENVS = 8
 PGS_DIVERGED = 1e10              # an impulse (N s) no converging PGS solve reaches (the phase
@@ -228,7 +266,7 @@ PGS_DIVERGED = 1e10              # an impulse (N s) no converging PGS solve reac
                                  # passes it within one substep (tests/test_torch_pgs.py)
 PGS_DIVERGED_SHARE = 0.01        # ... the share of envs allowed to diverge in a run
 VIEW_ENVS = 4096
-VIEW_STEPS = 16
+VIEW_STEPS = 8                   # 16 before the oracle and evalskills phases came
 VIEW_LAUNCHES = VIEW_STEPS * 1 * 2               # view motion: 1 tick x 2 substeps a step
 VIEW_CHECK_ENVS = 64
 VIEW_QUERIES = 65536
@@ -237,7 +275,7 @@ MOCAP_FBX = "data/poselib/09_11_cmu.fbx"
 MOCAP_IMPORTED = "data/poselib/09_11_cmu_imported.npy"   # the vendored 60 fps import
 RETARGET_CFG = "data/retarget_cfg/retarget_cmu_to_amp.json"
 MOCAP_ENVS = 4096
-MOCAP_STEPS = 16
+MOCAP_STEPS = 8                  # 16 before the oracle and evalskills phases came
 MOCAP_LAUNCHES = MOCAP_STEPS * 2 * 2             # 2 ticks x 2 substeps a control step
 MOCAP_CHECK_ENVS = 8
 FK_POS_TOL = 1e-5                # fk on the card vs np_fk: positions (m)
@@ -253,7 +291,7 @@ BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile"
             "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
             "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60, "cache": 60,
             "pgs": 120, "pgs_check": 60, "viewmotion": 90, "multi": 150, "nccl": 30,
-            "savevideo": 90, "mocap": 90}
+            "savevideo": 90, "mocap": 90, "oracle": 75, "evalskills": 60}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -337,7 +375,7 @@ DR_ARGV = [
     "--cfg_train", "train/rlg/ase_humanoid.yaml",
     "--motion_file", DATASET,
     "--num_envs", str(DR_ENVS), "--max_iterations", str(DR_EPOCHS), "--seed", "0",
-    "--randomize",
+    "--randomize", "--horizon_length", str(CUT_HORIZON),
 ]
 
 
@@ -349,6 +387,7 @@ MULTI_ARGV = [
     "--cfg_train", "train/rlg/ase_humanoid.yaml",
     "--motion_file", DATASET,
     "--num_envs", str(MULTI_ENVS), "--max_iterations", "1", "--seed", "0", "--multi_gpu",
+    "--horizon_length", str(CUT_HORIZON),
 ]
 
 
@@ -534,9 +573,9 @@ def kernels_phase():
     from ase_tpu_torch.ops import chol
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, rows34 = {}, {}
+    rows, rows34, rows1 = {}, {}, {}
     for (n, m, m2, B) in ((37, 72, 1, 4096), (34, 72, 1, 4096), (37, 1, 1, 4096),
-                          (37, 72, 1, 129), (8, 1, 1, 256)):
+                          (37, 72, 1, 129), (8, 1, 1, 256), (37, 72, 1, 1), (1, 9, 1, 1)):
         M, R, R2 = _spd(torch, n, m, m2, B, gen)
         L, Y, Y2 = chol.chol_forward(M, R, R2)
         L1, Y1 = chol.chol_forward(M, R)
@@ -566,7 +605,9 @@ def kernels_phase():
                            cuda_ms(torch, lambda: chol.back_solve_plain(L, Y2), 5)),
         }
         engine = (m, m2, B) == (72, 1, 4096) and n in (37, 34)
-        cold = {"back_solve": cold_ms(torch, chol.back_solve, (L, Y2), work["back_solve"][0])}
+        # at B = 1 a cold rotation would take ~33,000 copies of the inputs
+        cold = {} if B == 1 else {
+            "back_solve": cold_ms(torch, chol.back_solve, (L, Y2), work["back_solve"][0])}
         if engine:
             cold["chol_forward2"] = cold_ms(torch, chol.chol_forward, (M, R, R2),
                                             work["chol_forward2"][0])
@@ -602,15 +643,22 @@ def kernels_phase():
             print(f"kernel {k} n={n} m={m} m2={m2} B={B}: " + json.dumps(row), flush=True)
             if engine:
                 (rows if n == 37 else rows34)[k] = row
+            elif (n, B) == (37, 1):
+                rows1[k] = row
     for n, rs in ((37, rows), (34, rows34)):
         print(f"kernels (n={n}, m=72, m2=1, B=4096): " + "; ".join(
             f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
             f"{r['bound_ms'] / r['cold_ms']:.2f} of it cold; plain {r['plain_ms']:.3f}, "
             f"library {r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})"
             for k, r in rs.items()))
+    print("kernels at B = 1 (n=37, m=72, m2=1; the one-env engine.step): " + "; ".join(
+        f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.6f}; plain {r['plain_ms']:.3f}, library "
+        f"{r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})" for k, r in rows1.items()))
     for k, r in rows.items():
         r["amp_humanoid"] = {f: rows34[k][f] for f in ("ms", "cold_ms", "plain_ms", "library_ms",
                                                        "max_abs_err", "bound_ms")}
+        r["one_env"] = {f: rows1[k][f] for f in ("ms", "plain_ms", "library_ms", "max_abs_err",
+                                                 "bound_ms", "bound_by")}
     return rows
 
 
@@ -918,8 +966,9 @@ def _goal_draws(env, gen, n):
             for _ in range(5)]
 
 
-def _train_widths(agent):
-    """The shipped config's full widths, as the train phase must run them."""
+def _train_widths(agent, horizon=32):
+    """The shipped config's full widths, as the train phase must run them
+    (the train_bf16 phase at a cut ``horizon``)."""
     net = agent.network
     got = {
         "actor": [l.out_features for l in net.actor_mlp.layers],
@@ -933,8 +982,8 @@ def _train_widths(agent):
     }
     want = {"actor": [1024, 1024, 512], "critic": [1024, 1024, 512], "disc": [1024, 1024, 512],
             "style": [512, 256], "latent_dim": 64, "minibatch": 16384, "mini_epochs": 6,
-            "minibatches": 8, "demo_buffer": 200000, "replay_buffer": 200000, "envs": 4096,
-            "horizon": 32}
+            "minibatches": horizon // 4, "demo_buffer": 200000, "replay_buffer": 200000,
+            "envs": 4096, "horizon": horizon}
     if got != want:
         raise Failed(f"train phase not at the shipped widths: {got}")
     return got
@@ -951,11 +1000,13 @@ def _in_temp_dir(prefix, fn):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def train_phase(card, rows):
-    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch, the
-    resume of its checkpoint and one more epoch, then ``check_minibatch``
-    on the first agent. Returns the epoch records and the fall states."""
-    return _in_temp_dir("smoke_train_", lambda out_dir: _train(card, rows, out_dir))
+def train_phase(card, rows, fall_states):
+    """TRAIN_EPOCHS epochs of ``ase_tpu_torch.run``'s training branch (its
+    env given the player phase's ``fall_states``), the resume of its
+    checkpoint and one more epoch, then ``check_minibatch`` on the first
+    agent. Returns the epoch records and the fall states."""
+    return _in_temp_dir("smoke_train_", lambda out_dir: _train(card, rows, fall_states,
+                                                               out_dir))
 
 
 def _check_resumed(saved, resumed):
@@ -981,18 +1032,19 @@ def _check_resumed(saved, resumed):
                      f"{saved.epoch}, {saved.frame}")
 
 
-def _train(card, rows, out_dir):
+def _train(card, rows, fall_states, out_dir):
     import torch
     from ase_tpu_torch import run
     from ase_tpu_torch.ops import chol
 
     argv = TRAIN_ARGV + ["--output_path", out_dir]
     agent, _, _ = run.build_agent(argv)
+    agent.env._fall_states = fall_states          # the player phase's drop: env construction
     t0 = time.time()
     env_state = agent.setup_training()
     torch.cuda.synchronize()
-    print(f"train setup: {time.time() - t0:.1f} s (demo buffer fill, fall-state drop, initial "
-          f"reset); widths {_train_widths(agent)}", flush=True)
+    print(f"train setup: {time.time() - t0:.1f} s (demo buffer fill, initial reset; the player "
+          f"phase's fall states reused); widths {_train_widths(agent)}", flush=True)
     before = [p.detach().clone() for p in agent.network.parameters()]
     records = []
 
@@ -1310,11 +1362,12 @@ def _train_bf16(card, rows, fall_states, out_dir):
 
     t0 = time.time()
     agent, _, _ = run.build_agent(TRAIN_ARGV + ["--max_iterations", str(TRAIN_BF16_EPOCHS),
-                                                "--output_path", out_dir], edit_cfg=bf16)
+                                                "--output_path", out_dir, "--horizon_length",
+                                                str(CUT_HORIZON)], edit_cfg=bf16)
     agent.env._fall_states = fall_states          # the train phase's drop: env construction
     env_state = agent.setup_training()
     torch.cuda.synchronize()
-    widths = _train_widths(agent)
+    widths = _train_widths(agent, CUT_HORIZON)
     print(f"train_bf16 setup: {time.time() - t0:.1f} s (fall states reused); widths {widths}",
           flush=True)
     seen = {}
@@ -1361,7 +1414,7 @@ def _train_bf16(card, rows, fall_states, out_dir):
         bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
         if bad:
             raise Failed(f"bf16 epoch {rec['epoch']}: non-finite metrics {bad}")
-        want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+        want = {"chol_forward2": CUT_LAUNCHES, "back_solve": CUT_LAUNCHES, "chol_forward": 0}
         if rec["launches"] != want:
             raise Failed(f"bf16 epoch {rec['epoch']}: launches {rec['launches']}, want {want}")
     moved = sum(float((p.detach() - q).abs().max()) > 0
@@ -1516,7 +1569,7 @@ def dr_phase(card):
     env = agent.env
     if len(records) != DR_EPOCHS:
         raise Failed(f"trained {len(records)} dr epochs, want {DR_EPOCHS}")
-    want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+    want = {"chol_forward2": CUT_LAUNCHES, "back_solve": CUT_LAUNCHES, "chol_forward": 0}
     for rec in records:
         if rec["launches"] != want:
             raise Failed(f"dr epoch {rec['epoch']}: launches {rec['launches']}, want {want}")
@@ -1639,7 +1692,8 @@ def _hrl_train(card, rows, out_dir):
     from ase_tpu_torch import run
     from ase_tpu_torch.ops import chol
 
-    argv = STRIKE_ARGV + ["--max_iterations", str(HRL_TRAIN_EPOCHS), "--output_path", out_dir]
+    argv = STRIKE_ARGV + ["--max_iterations", str(HRL_TRAIN_EPOCHS), "--output_path", out_dir,
+                          "--horizon_length", str(HRL_TRAIN_HORIZON)]
     t0 = time.time()
     agent, _, _ = run.build_agent(argv)
     got = {"hlc": [l.out_features for l in agent.network.actor_mlp.layers],
@@ -1649,7 +1703,8 @@ def _hrl_train(card, rows, out_dir):
            "minibatches": agent.num_minibatches, "envs": agent.num_actors,
            "horizon": agent.horizon_length}
     want = {"hlc": [1024, 512], "critic": [1024, 512], "obs": 268, "latent": 64, "llc_steps": 5,
-            "minibatch": 16384, "mini_epochs": 6, "minibatches": 8, "envs": 4096, "horizon": 32}
+            "minibatch": 16384, "mini_epochs": 6, "minibatches": HRL_TRAIN_HORIZON // 4,
+            "envs": 4096, "horizon": HRL_TRAIN_HORIZON}
     if got != want:
         raise Failed(f"hrl_train phase not at the shipped widths: {got}")
     if not _llc_matches_checkpoint(agent):
@@ -2350,7 +2405,7 @@ def multi_phase(card, rates):
         return out
 
     results = _in_temp_dir("smoke_multi_", ranks)
-    want = {"chol_forward2": TRAIN_LAUNCHES, "back_solve": TRAIN_LAUNCHES, "chol_forward": 0}
+    want = {"chol_forward2": CUT_LAUNCHES, "back_solve": CUT_LAUNCHES, "chol_forward": 0}
     for res in results:
         r = res["rank"]
         if (res["world"], res["staged"], res["envs"]) != (MULTI_RANKS, True,
@@ -2426,6 +2481,338 @@ def nccl_phase():
           "broadcast on cuda:0 as expected; group destroyed", flush=True)
 
 
+ORACLE_ENVS = 4096
+ORACLE_TICKS = 8
+ORACLE_K = 24
+ORACLE_M_RTOL = 2e-5             # oracle vs batched on the card: M and bias, of their scale
+ORACLE_PHI_TOL = 1e-5            # ... Phi, absolute
+ORACLE_DEPTH_TOL = 2e-5          # ... sorted contact depths, absolute
+ORACLE_ATTR_TOL = 1e-4           # ... normal, position, friction at matching depth ranks
+ORACLE_ATTR_SHARE = 1e-3         # ... but for this share of the compared contacts, held
+ORACLE_ATTR_WIDE = 1e-3          #     to this: a deep, near-concentric self-penetration
+                                 #     rounds its normal to 1e-4-4e-4 (1.01e-4 in 1 of
+                                 #     2048 poses on the CPU, 3.5e-4 at worst and the
+                                 #     4th worst 1.08e-4 at 4096 on the card);
+                                 #     tests/test_collision_soa.py's 16 poses meet none
+PENDULUM_TICKS = 1400            # tests/test_physics.py:125's swing at 600 Hz
+PENDULUM_DT = 1.0 / 600.0
+PENDULUM_XML = """
+<mujoco model="pend">
+  <worldbody>
+    <body name="anchor" pos="0 0 2">
+      <geom type="sphere" size="0.01" density="100"/>
+      <body name="rod" pos="0 0 0">
+        <joint name="swing" type="hinge" axis="0 1 0" range="-180 180"
+               stiffness="0" damping="0" armature="0"/>
+        <geom type="capsule" fromto="0 0 0 0 0 -1.0" size="0.02" density="1000"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+EVALSKILLS_ARGV = ["--envs", "256", "--steps", "16", "--getup-envs", "256",
+                   "--getup-steps", "32"]
+EVALSKILLS_LAUNCHES = (16 + 32) * 2 * 2          # control steps x 2 ticks x 2 substeps
+
+
+def _random_poses(model, B, seed, device):
+    """``tests/test_dynamics2.py:22-33``'s states: root height 0.5 + U(0, 1),
+    random root and joint rotations, standard-normal articulation
+    velocities; the default pose otherwise."""
+    import torch
+    from ase_tpu_torch.ops import quat as rot
+    from ase_tpu_torch.physics import dynamics
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    st = dynamics.default_state(model, B)
+    root_pos = st.root_pos.clone()
+    root_pos[:, 2] = 0.5 + torch.rand(B, generator=gen, device=device)
+    u = st.u.clone()
+    u[:, :model.nu] = torch.randn(B, model.nu, generator=gen, device=device)
+    return st._replace(
+        root_pos=root_pos,
+        root_quat=rot.quat_unit(torch.randn(B, 4, generator=gen, device=device)),
+        joint_q=rot.quat_unit(torch.randn(st.joint_q.shape, generator=gen, device=device)),
+        u=u)
+
+
+def _rank_matched(ref, got):
+    """Differences between two contact sets at matching depth ranks
+    (``tests/test_collision_soa.py:47-60``): {"depth": max over the sorted
+    depths, and for "normal", "pos", "friction": (max, max over all but the
+    worst ORACLE_ATTR_SHARE of the compared contacts)}, and the count of
+    ranks left out of the attributes: those whose depth lies within
+    ORACLE_DEPTH_TOL of zero or of a neighbour's, where the two sides may
+    order or select the contacts differently."""
+    import torch
+
+    dr, oa = torch.sort(ref.depth, dim=1, descending=True, stable=True)
+    dg, ob = torch.sort(got.depth, dim=1, descending=True, stable=True)
+    errs = {"depth": float((dr - dg).abs().max())}
+    gap = torch.full_like(dr, float("inf"))
+    gap[:, 1:] = dr[:, :-1] - dr[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], dr[:, :-1] - dr[:, 1:])
+    clear = (gap > ORACLE_DEPTH_TOL) & (dr.abs() > ORACLE_DEPTH_TOL)
+    n = int(clear.sum())
+    spare = int(ORACLE_ATTR_SHARE * n)
+    for f in ("normal", "pos", "friction"):
+        va, vb = getattr(ref, f), getattr(got, f)
+        if va.dim() == 3:
+            fa = torch.gather(va, 1, oa[..., None].expand_as(va))
+            fb = torch.gather(vb, 1, ob[..., None].expand_as(vb))
+            d = (fa - fb).abs().amax(-1)
+        else:
+            d = (torch.gather(va, 1, oa) - torch.gather(vb, 1, ob)).abs()
+        d = torch.sort(d[clear]).values if n else torch.zeros(1, device=d.device)
+        errs[f] = (float(d[-1]), float(d[max(0, d.numel() - 1 - spare)]))
+        errs[f + " count"] = int((d > ORACLE_ATTR_TOL).sum())
+    return errs, int((~clear & (dr.abs() > ORACLE_DEPTH_TOL)).sum())
+
+
+def check_oracle(model, B, seed=0):
+    """The AoS oracles against the batched forms the engine runs, both on
+    the card, at B random poses (``tests/test_dynamics2.py``,
+    ``tests/test_collision_soa.py`` and the reference's
+    ``test_joint_batched_actuation_matches_loop``, at their tolerances).
+    Returns the max errors."""
+    import torch
+    from ase_tpu_torch.ops import quat as rot
+    from ase_tpu_torch.physics import collision2, collision3, dynamics, dynamics2
+
+    dev = model.device
+    st = _random_poses(model, B, seed, dev)
+    static = dynamics2.DynStatic(model)
+    h = 1.0 / 120.0
+    errs = {}
+
+    def hold(name, ref, got, atol, rtol=0.0):
+        e = float((ref - got).abs().max())
+        tol = atol + rtol * float(ref.abs().max())
+        errs[name] = e
+        if not e <= tol:
+            raise Failed(f"oracle: {name} {e} > {tol}")
+
+    kin = dynamics.fk(model, st)
+    kb = dynamics2.fk_batched(model, static, st)
+    for f, tol in (("body_quat", 1e-6), ("body_pos", 1e-5), ("body_R", 1e-5),
+                   ("body_vel", 1e-4), ("com_world", 1e-5)):
+        hold(f"fk {f}", getattr(kin, f), getattr(kb, f), tol)
+    dyn = dynamics.compute_dynamics(model, st, kin, h)
+    M_bl, bias, Phi = dynamics2.compute_dynamics_batch_last(model, static, st, kin,
+                                                            static.diag(model, h))
+    hold("M", dyn.Mmat, M_bl.permute(2, 0, 1), 0.0, ORACLE_M_RTOL)
+    hold("bias", dyn.bias, bias, 0.0, ORACLE_M_RTOL)
+    hold("Phi", dyn.Phi, Phi, ORACLE_PHI_TOL)
+    tab = dynamics.dof_tables(model)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tgt = 0.4 * torch.randn(B, model.nd, generator=gen, device=dev)
+    ks = 0.5 + torch.rand(B, generator=gen, device=dev)
+    for kd in (None, ks):
+        hold("pd_torques" + ("" if kd is None else " (damping scale)"),
+             dynamics.pd_torques(model, st, tgt, h, kd_scale=1.0 if kd is None else kd),
+             dynamics.pd_torques_batched(model, tab, st, tgt, h, kd_scale=kd), 1e-4, 1e-5)
+    hold("limit_torques", dynamics.limit_torques(model, st),
+         dynamics.limit_torques_batched(model, tab, st), 1e-4, 1e-5)
+
+    tables = collision2.build_tables(model, True)
+    aos = collision2.detect(model, tables, kin.body_R, kin.body_pos,
+                            rot.quat_to_rotation_matrix(st.prop_quat), st.prop_pos, ORACLE_K)
+    soa = collision3.detect_batched(collision3.DetectConsts(model, tables.soa, dev),
+                                    kin.body_quat, kin.body_pos, st.prop_quat, st.prop_pos,
+                                    ORACLE_K)
+    cerr, left = _rank_matched(aos, soa)
+    errs["contacts depth"] = cerr.pop("depth")
+    over = {f: cerr.pop(f + " count") for f in ("normal", "pos", "friction")}
+    if not errs["contacts depth"] <= ORACLE_DEPTH_TOL:
+        raise Failed(f"oracle: contact depths {errs['contacts depth']} > {ORACLE_DEPTH_TOL}")
+    for f, (worst, body) in cerr.items():
+        errs[f"contacts {f}"], errs[f"contacts {f} but the worst share"] = worst, body
+        if not (body <= ORACLE_ATTR_TOL and worst <= ORACLE_ATTR_WIDE):
+            raise Failed(f"oracle: contact {f} {body} (all but {ORACLE_ATTR_SHARE} of them) > "
+                         f"{ORACLE_ATTR_TOL} or {worst} > {ORACLE_ATTR_WIDE}")
+    touching = int((aos.depth > 0).sum())
+    print(f"oracle at {B} random poses on {dev}: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; {touching} penetrating contacts, {left} ranks within {ORACLE_DEPTH_TOL} of zero "
+        f"or of a neighbour left out of the attributes; compared contacts past "
+        f"{ORACLE_ATTR_TOL}: {over}", flush=True)
+    return errs
+
+
+def check_one_env_steps(model, cfg, state, actions):
+    """``engine.step`` (one env, no batch dim) for len(actions) ticks on the
+    card; each tick also taken on the CPU from the card's state before it,
+    held at ``check_tick``'s tolerances. Returns (the card's launches of
+    the run, the max errors)."""
+    import torch
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.physics import engine
+
+    cfg = cfg._replace(solver=cfg.solver._replace(matvec_bf16=False))
+    mc, mh = model.to("cuda"), model.to("cpu")
+    Tc, Th = engine.Tables(mc, cfg), engine.Tables(mh, cfg)
+    st = type(state)(*(x.to("cuda") for x in state))
+    errs = {}
+    launched = {k: 0 for k in chol.LAUNCHES}
+    for a in actions:
+        before = dict(chol.LAUNCHES)
+        out = engine.step(mc, cfg, Tc, st, a.to("cuda")).state
+        for k in launched:
+            launched[k] += chol.LAUNCHES[k] - before[k]
+        ref = engine.step(mh, cfg, Th, type(st)(*(x.cpu() for x in st)), a.cpu()).state
+        for name in ("root_pos", "root_quat", "joint_q", "hinge_q", "u"):
+            a_, b_ = getattr(out, name).cpu(), getattr(ref, name)
+            e = float((a_ - b_).abs().max())
+            tol = TICK_VEL_RTOL * max(1.0, float(b_.abs().max())) if name == "u" else TICK_POS_TOL
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not e <= tol:
+                raise Failed(f"one-env step: card and CPU disagree on {name}: {e} > {tol}")
+        st = out
+    torch.cuda.synchronize()
+    return launched, errs
+
+
+def pendulum_model(device):
+    """The reference's single-hinge pendulum (tests/test_physics.py:125): a
+    fixed base, so n = nu = 1."""
+    from ase_tpu_torch.physics import mjcf
+
+    with tempfile.NamedTemporaryFile("w", suffix=".xml", delete=False) as f:
+        f.write(PENDULUM_XML)
+        path = f.name
+    try:
+        return mjcf.load_mjcf(path, device=device)
+    finally:
+        os.unlink(path)
+
+
+def pendulum_check(device="cuda", ticks=PENDULUM_TICKS):
+    """The pendulum swung from rest at 0.1 rad for ``ticks`` ticks of
+    ``engine.step``: the period within 5% of the small-angle physical
+    pendulum's and the amplitude of the last 400 ticks within 10% of the
+    first 400's (tests/test_physics.py:125's bounds). Returns (period,
+    analytic period, late amplitude, early amplitude)."""
+    import numpy as np
+    import torch
+    from ase_tpu_torch.physics import dynamics, engine
+
+    m = pendulum_model(device)
+    if (m.nu, m.root_dofs) != (1, 0):
+        raise Failed(f"pendulum: want one hinge on a fixed base, got nu {m.nu}")
+    cfg = engine.SimConfig(dt=PENDULUM_DT, substeps=1, enable_self_collision=False,
+                           max_contacts=4, torque_control=True)
+    T = engine.Tables(m, cfg)
+    s = dynamics.set_dof_state(m, dynamics.default_state(m), torch.tensor([0.1], device=device),
+                               torch.zeros(1, device=device))
+    zero = torch.zeros(m.nd, device=device)
+    thetas = []
+    for _ in range(ticks):
+        s = engine.step(m, cfg, T, s, zero).state
+        thetas.append(dynamics.dof_pos(m, s)[0])
+    thetas = torch.stack(thetas).cpu().numpy().astype(np.float64)
+    centered = thetas - thetas.mean()
+    crossings = np.where(np.diff(np.sign(centered)) != 0)[0]
+    if len(crossings) < 2:
+        raise Failed("pendulum did not oscillate")
+    period = 2.0 * np.diff(crossings).mean() * PENDULUM_DT
+    mass, com_d = float(m.mass[1]), abs(float(m.com[1][2]))
+    I_p = float(m.inertia[1][1, 1]) + mass * com_d ** 2
+    T_analytic = 2 * np.pi * np.sqrt(I_p / (mass * 9.81 * com_d))
+    late, early = np.abs(centered[-400:]).max(), np.abs(centered[:400]).max()
+    if not abs(period - T_analytic) <= 0.05 * T_analytic:
+        raise Failed(f"pendulum period {period} s, analytic {T_analytic} s (5%)")
+    if not abs(late - early) <= 0.1 * early:
+        raise Failed(f"pendulum amplitude {late} late against {early} early (10%)")
+    return period, T_analytic, late, early
+
+
+def oracle_phase(card):
+    """The AoS oracles against the batched engine at ORACLE_ENVS poses, the
+    one-env ``engine.step`` card against CPU for ORACLE_TICKS ticks (B = 1:
+    2 launches of chol_forward2 and of back_solve a tick), and the pendulum
+    (n = 1) on the card. Returns the launches of the one-env run and the
+    pendulum's."""
+    import torch
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.physics import dynamics, engine, mjcf
+
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cuda")
+    t0 = time.time()
+    check_oracle(model, ORACLE_ENVS)
+    torch.cuda.synchronize()
+    print(f"oracle check: {time.time() - t0:.1f} s ({card})", flush=True)
+
+    gen = torch.Generator().manual_seed(1)
+    st = dynamics.default_state(model.to("cpu"))
+    st = st._replace(root_pos=torch.tensor([0.0, 0.0, 0.92]),
+                     u=0.3 * torch.randn(model.nv, generator=gen))
+    st = dynamics.set_dof_state(model.to("cpu"), st, 0.1 * torch.randn(model.nd, generator=gen),
+                                dynamics.dof_vel(model.to("cpu"), st))
+    acts = [0.3 * torch.randn(model.nd, generator=gen) for _ in range(ORACLE_TICKS)]
+    t0 = time.time()
+    chol.reset_launches()
+    launched, errs = check_one_env_steps(model, engine.SimConfig(), st, acts)
+    want = {"chol_forward2": 2 * ORACLE_TICKS, "back_solve": 2 * ORACLE_TICKS, "chol_forward": 0}
+    print(f"one-env engine.step, {ORACLE_TICKS} ticks from a perturbed standing pose, card "
+          f"against CPU tick by tick: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; launches {launched}; {time.time() - t0:.1f} s", flush=True)
+    if launched != want:
+        raise Failed(f"one-env step launched {launched}, want {want}")
+
+    t0 = time.time()
+    chol.reset_launches()
+    period, T_analytic, late, early = pendulum_check("cuda")
+    pend = dict(chol.LAUNCHES)
+    print(f"pendulum (n = 1, B = 1) on the card, {PENDULUM_TICKS} ticks: period {period:.4f} s "
+          f"against {T_analytic:.4f} s analytic, amplitude {late:.5f} late against {early:.5f} "
+          f"early; launches {pend}; {time.time() - t0:.1f} s ({card})", flush=True)
+    if pend != {"chol_forward2": PENDULUM_TICKS, "back_solve": PENDULUM_TICKS, "chol_forward": 0}:
+        raise Failed(f"pendulum launched {pend}, want {PENDULUM_TICKS} of each")
+    return {k: launched[k] + pend[k] for k in launched}
+
+
+def evalskills_phase(card, fall_states):
+    """``tools.eval_llc_skills.main`` with the shipped LLC: EVALSKILLS_ARGV's
+    latent sweep on HumanoidAMP and getup rollout from the train phase's
+    fall states (no 150-tick drop). The stats must be finite, with 256
+    latents and some fall states, and the launches exact. Returns the
+    launches."""
+    import torch
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.tools import eval_llc_skills
+
+    def run(out_dir):
+        chol.reset_launches()
+        t0 = time.time()
+        stats = eval_llc_skills.main(EVALSKILLS_ARGV + ["--out", os.path.join(out_dir, "s.json"),
+                                                       "--device", "cuda"],
+                                     fall_states=fall_states)
+        torch.cuda.synchronize()
+        return stats, dict(chol.LAUNCHES), time.time() - t0
+
+    stats, launched, wall = _in_temp_dir("smoke_evalskills_", run)
+    print("evalskills stats: " + json.dumps(stats), flush=True)
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for y in x.values() for v in numbers(y)]
+        return list(x) if isinstance(x, list) else [x]
+
+    bad = [v for v in numbers(stats) if not math.isfinite(float(v))]
+    if bad:
+        raise Failed(f"evalskills: non-finite stats {bad}")
+    if stats["n_latents"] != 256 or stats["getup"]["n_fall_states"] <= 0:
+        raise Failed(f"evalskills: {stats['n_latents']} latents, "
+                     f"{stats['getup']['n_fall_states']} fall states")
+    want = {"chol_forward2": EVALSKILLS_LAUNCHES, "back_solve": EVALSKILLS_LAUNCHES,
+            "chol_forward": 0}
+    if launched != want:
+        raise Failed(f"evalskills launched {launched}, want {want}")
+    print(f"evalskills: {wall:.1f} s, launches {launched} ({card})", flush=True)
+    return launched
+
+
 def main():
     t_start = time.time()
     signal.signal(signal.SIGALRM, _timeout)
@@ -2441,17 +2828,23 @@ def main():
     launches, player = phase("player", lambda: player_phase(card), t_start)
     phase("profile", lambda: profile_phase(player, card), t_start)
     phase("check", lambda: check_phase(player), t_start)
+    fall_states = player.env._fall_states
     del player
+    torch.cuda.empty_cache()
+    oracle_launches = phase("oracle", lambda: oracle_phase(card), t_start)
     torch.cuda.empty_cache()
     hrl_launches, hrl_player, hrl_rate = phase("hrl", lambda: hrl_phase(
         card, HRL_ARGV + ["--num_envs", "4096"], 258, HRL_DECISIONS, "hrl"), t_start)
     phase("hrl_check", lambda: check_hrl(hrl_player), t_start)
     del hrl_player
     torch.cuda.empty_cache()
-    records, fall_states = phase("train", lambda: train_phase(card, rows), t_start)
+    records, fall_states = phase("train", lambda: train_phase(card, rows, fall_states), t_start)
     torch.cuda.empty_cache()
     bf16_records = phase("train_bf16", lambda: train_bf16_phase(card, rows, fall_states),
                          t_start)
+    torch.cuda.empty_cache()
+    evalskills_launches = phase("evalskills", lambda: evalskills_phase(card, fall_states),
+                                t_start)
     del fall_states
     torch.cuda.empty_cache()
     strike_launches, strike_player, _ = phase("strike", lambda: hrl_phase(
@@ -2510,7 +2903,9 @@ def main():
                     train_bf16_launches=train_bf16_launches[k], dr_launches=dr_launches[k],
                     multi_launches=multi_launches[k], pgs_launches=pgs_launches[k],
                     viewmotion_launches=view_launches[k], savevideo_launches=video_launches[k],
-                    mocap_launches=mocap_launches[k], on_path=k != "chol_forward", **rows[k])
+                    mocap_launches=mocap_launches[k], oracle_launches=oracle_launches[k],
+                    evalskills_launches=evalskills_launches[k], on_path=k != "chol_forward",
+                    **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")
     print(json.dumps({"kernels": kernels}))

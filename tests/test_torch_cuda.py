@@ -573,3 +573,85 @@ def test_vec_step_check_passes_on_the_cpu(tmp_path, monkeypatch):
     vec, act = _amp_humanoid_state(cfg, steps=2)
     errs = chip_smoke.check_vec_step(cfg, vec.state, torch.arange(1, 4), act[1:], device="cpu")
     assert set(errs.values()) == {0.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,B", [(37, 72, 1), (1, 9, 1), (1, 9, 33), (1, 1, 4096)])
+def test_kernels_at_one_env_and_n_one_match_plain_versions_on_the_card(cuda, n, m, B):
+    """The shapes the one-env ``engine.step`` gives the kernels: B = 1 (one
+    live lane in the block; back_solve's 4-byte copies) at the engine's
+    n = 37, and the pendulum's n = 1 (the generic instances' column loops
+    at their smallest)."""
+    M, R, R2 = (torch.as_tensor(x, device=cuda) for x in _system(n, m, 1, B, seed=n + B))
+    before = dict(chol.LAUNCHES)
+    L, Y, Y2 = chol.chol_forward(M, R, R2)
+    x = chol.back_solve(L, Y2)
+    torch.cuda.synchronize()
+    assert chol.LAUNCHES["chol_forward2"] == before["chol_forward2"] + 1
+    assert chol.LAUNCHES["back_solve"] == before["back_solve"] + 1
+    Lp, Yp, Y2p = chol.chol_forward_plain(M, R, R2)
+    xp = chol.back_solve_plain(Lp, Y2p)
+    for got, ref in ((L, Lp), (Y, Yp), (Y2, Y2p), (x, xp)):
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_one_env_step_on_the_card_matches_the_cpu(cuda):
+    """``engine.step`` (B = 1) for 3 ticks on the card, each tick held to the
+    CPU's from the same state at ``check_tick``'s tolerances
+    (``chip_smoke.check_one_env_steps``): 2 launches of chol_forward2 and of
+    back_solve a tick."""
+    import chip_smoke
+    from ase_tpu_torch.physics import dynamics, engine, mjcf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    st = dynamics.default_state(model)._replace(root_pos=torch.tensor([0.0, 0.0, 0.9]))
+    acts = [torch.full((31,), 0.1 * k) for k in range(3)]
+    launched, _ = chip_smoke.check_one_env_steps(model, engine.SimConfig(), st, acts)
+    assert launched == {"chol_forward2": 6, "back_solve": 6, "chol_forward": 0}
+
+
+@pytest.mark.cuda
+def test_pendulum_on_the_card_keeps_its_period_and_energy(cuda):
+    """tests/test_physics.py:125's pendulum (n = 1, B = 1) through the kernels."""
+    import chip_smoke
+
+    before = dict(chol.LAUNCHES)
+    chip_smoke.pendulum_check("cuda")
+    assert chol.LAUNCHES["chol_forward2"] - before["chol_forward2"] == chip_smoke.PENDULUM_TICKS
+
+
+def test_oracle_check_passes_on_the_cpu():
+    """``chip_smoke.check_oracle`` (the AoS oracles against the batched
+    forms) with the model on the CPU, at 8 poses."""
+    import chip_smoke
+    from ase_tpu_torch.physics import mjcf
+
+    torch.set_num_threads(1)
+    model = mjcf.load_mjcf(mjcf.find_asset("", "mjcf/amp_humanoid_sword_shield.xml"),
+                           device="cpu")
+    errs = chip_smoke.check_oracle(model, 8)
+    assert errs["contacts depth"] <= chip_smoke.ORACLE_DEPTH_TOL
+    assert errs["contacts normal"] <= chip_smoke.ORACLE_ATTR_TOL
+
+
+def test_oracle_contact_comparison_catches_a_moved_contact():
+    """``chip_smoke._rank_matched`` reports a normal that differs at a
+    matching rank, and leaves out ranks whose depths tie."""
+    import chip_smoke
+    from ase_tpu_torch.physics.collision import Contacts
+
+    depth = torch.tensor([[0.3, 0.1, 0.1 + 1e-6, 0.0]])
+    normal = torch.tensor([[[0.0, 0.0, 1.0]] * 4])
+    c = Contacts(pos=torch.zeros(1, 4, 3), normal=normal, depth=depth,
+                 body_a=torch.zeros(1, 4, dtype=torch.long),
+                 body_b=torch.zeros(1, 4, dtype=torch.long), friction=torch.ones(1, 4))
+    errs, left = chip_smoke._rank_matched(c, c)
+    assert errs["depth"] == 0.0 and errs["normal"] == (0.0, 0.0) and left == 2
+    assert errs["normal count"] == 0
+    moved = c._replace(normal=torch.tensor([[[1.0, 0.0, 0.0]] + [[0.0, 0.0, 1.0]] * 3]))
+    errs, _ = chip_smoke._rank_matched(c, moved)
+    assert errs["normal"] == (1.0, 1.0)      # one contact compared: no share to spare

@@ -58,21 +58,44 @@ def rng():
     "quat_mul", "quat_rotate", "quat_conjugate", "quat_to_rotation_matrix",
     "quat_to_tan_norm", "calc_heading_quat", "calc_heading_quat_inv", "quat_to_exp_map",
     "slerp", "quat_integrate", "quat_integrate_local",
+    "quat_mul_norm", "quat_rotate_inverse", "quat_abs_positive", "quat_from_euler_xyz",
+    "quat_from_rotation_matrix", "quat_diff_rad",
+    "spatial.xform", "spatial.xform_motion", "spatial.xform_motion_inv",
+    "spatial.xform_force_to_parent",
 ])
 def test_quat_functions_match(rng, name):
+    """Each rotation function, and each spatial transform (``spatial.``),
+    on the same numpy inputs in both packages; the quaternions for
+    ``quat_from_rotation_matrix`` come through rotation matrices, of
+    which each of the four Shepperd pivots wins some."""
     n = 64
     a, b = _quats(rng, n), _quats(rng, n)
     v = rng.normal(size=(n, 3)).astype(np.float32)
+    v6 = rng.normal(size=(n, 6)).astype(np.float32)
     t = rng.uniform(size=(n, 1)).astype(np.float32)
+    euler = tuple(rng.uniform(-np.pi, np.pi, size=n).astype(np.float32) for _ in range(3))
+    mats = np.array(jq.quat_to_rotation_matrix(jnp.asarray(a)))
     args = {
         "quat_mul": (a, b), "quat_rotate": (a, v), "quat_conjugate": (a,),
         "quat_to_rotation_matrix": (a,), "quat_to_tan_norm": (a,),
         "calc_heading_quat": (a,), "calc_heading_quat_inv": (a,), "quat_to_exp_map": (a,),
         "slerp": (a, b, t),
         "quat_integrate": (a, v, 1 / 120), "quat_integrate_local": (a, v, 1 / 120),
+        "quat_mul_norm": (a, 1.5 * b), "quat_rotate_inverse": (a, v),
+        "quat_abs_positive": (a,), "quat_from_euler_xyz": euler,
+        "quat_from_rotation_matrix": (mats,), "quat_diff_rad": (a, b),
+        "spatial.xform": (mats, v), "spatial.xform_motion": (mats, v, v6),
+        "spatial.xform_motion_inv": (mats, v, v6), "spatial.xform_force_to_parent": (mats, v, v6),
     }[name]
-    ja = getattr(jq, name)(*(jnp.asarray(x) if isinstance(x, np.ndarray) else x for x in args))
-    ta = getattr(tq, name)(*(torch.as_tensor(x) if isinstance(x, np.ndarray) else x for x in args))
+    if name == "quat_from_rotation_matrix":
+        pivots = np.argmax(np.stack([1 + np.trace(mats, axis1=1, axis2=2)]
+                                    + [1 + 2 * mats[:, k, k] - np.trace(mats, axis1=1, axis2=2)
+                                       for k in range(3)], -1), -1)
+        assert set(pivots.tolist()) == {0, 1, 2, 3}
+    jmod, tmod = (jsp, tsp) if name.startswith("spatial.") else (jq, tq)
+    fn = name.split(".")[-1]
+    ja = getattr(jmod, fn)(*(jnp.asarray(x) if isinstance(x, np.ndarray) else x for x in args))
+    ta = getattr(tmod, fn)(*(torch.as_tensor(x) if isinstance(x, np.ndarray) else x for x in args))
     _close(ja, ta, 1e-5)
 
 
