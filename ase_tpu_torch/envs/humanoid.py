@@ -187,6 +187,14 @@ class Humanoid:
     def get_action_size(self) -> int:
         return self.model.nd
 
+    @property
+    def num_obs(self) -> int:
+        return self.get_obs_size()
+
+    @property
+    def num_actions(self) -> int:
+        return self.get_action_size()
+
     def amp_obs_size(self) -> int:
         return 0
 

@@ -21,7 +21,9 @@ and saves ``{name}.ckpt.npz`` every ``save_frequency`` epochs (with
 ``save_intermediate`` also ``{name}_{epoch:08d}.ckpt.npz``, buffers
 included), ``{name}_best.ckpt.npz`` when the windowed game reward beats
 its best after ``save_best_after`` epochs, and ``{name}.ckpt.npz`` at the
-end, all under ``output_dir``. Unless ``save_buffers`` is set, checkpoints
+end, all under ``output_dir``; with ``ASE_TPU_PROFILE=<epoch>`` that epoch
+runs under torch.profiler and its Chrome trace lands in
+``<output_dir>/profile/``. Unless ``save_buffers`` is set, checkpoints
 leave out the reconstructible demo and replay buffers.
 
 Data-parallel training (``mesh``, a ``parallel.mesh.Mesh`` of W ranks)
@@ -634,6 +636,18 @@ class CommonAgent:
                            "update_s": t2 - t1, "env_steps_per_s": self.batch_size / (t2 - t0),
                            "metrics": dict(zip(names, values))}
 
+    def _profiled_epoch(self, env_state):
+        """``train_epoch`` under torch.profiler (CPU, and CUDA on the card),
+        its Chrome trace written to ``<output_dir>/profile/``."""
+        from ase_tpu_torch.utils.profiling import export, profiled
+
+        (env_state, record), prof, _ = profiled(lambda: self.train_epoch(env_state), self.device)
+        path = os.path.join(self.output_dir, "profile",
+                            f"epoch{record['epoch']}_rank{self.rank}.pt.trace.json.gz")
+        export(prof, path)
+        print(f"epoch {record['epoch']} profiled: trace in {path}", flush=True)
+        return env_state, record
+
     def train(self, max_epochs: Optional[int] = None, env_state=None,
               on_epoch: Optional[Callable[[dict], None]] = None, writer=None,
               restore_path: Optional[str] = None):
@@ -661,9 +675,14 @@ class CommonAgent:
         def path(suffix=""):
             return os.path.join(self.output_dir, f"{name}{suffix}.ckpt")
 
+        # ASE_TPU_PROFILE=<epoch> traces that epoch (unset or -1: no profiler at all)
+        profile_epoch = int(os.environ.get("ASE_TPU_PROFILE", "-1"))
         start, record = time.time(), None
         while self.epoch < max_epochs:
-            env_state, record = self.train_epoch(env_state)
+            if self.epoch == profile_epoch:
+                env_state, record = self._profiled_epoch(env_state)
+            else:
+                env_state, record = self.train_epoch(env_state)
             epoch, m = record["epoch"], record["metrics"]
             if self.rank == 0:
                 msg = " ".join(f"{k}:{v:.4f}" for k, v in m.items())

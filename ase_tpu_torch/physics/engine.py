@@ -216,6 +216,32 @@ def _aos_contact_step(model: M.Model, cfg: SimConfig, T: Tables, states: State, 
     return u_new, body_forces
 
 
+def _joint_torques(model: M.Model, cfg: SimConfig, T: Tables, states: State,
+                   actions: torch.Tensor, h: float, gain_scale=None, damping_scale=None):
+    """A substep's joint torques: the actuation (torque control or PD
+    towards ``actions``, scaled by ``gain_scale`` under stiffness
+    randomization) plus the joint-limit torques. Returns (tau (B, nd),
+    tau_full (B, nu): tau after the root's zero dofs)."""
+    if cfg.torque_control:
+        tau = actions * model.motor_gear * cfg.power_scale
+    else:
+        tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h,
+                                          kd_scale=damping_scale)
+    limit = dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
+    if gain_scale is None:
+        tau = tau + limit
+    else:   # stiffness randomization scales the whole actuation torque
+        tau = tau * (gain_scale[:, None] if gain_scale.dim() == 1 else gain_scale) + limit
+    tau_full = torch.zeros(actions.shape[0], model.nu, device=actions.device)
+    tau_full[:, model.root_dofs:] = tau
+    return tau, tau_full
+
+
+def _contact_step_fn(cfg: SimConfig):
+    """The contact step of ``cfg``'s solver scheme."""
+    return _aos_contact_step if cfg.solver.scheme == "pgs" else _zform_contact_step
+
+
 def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
                      actions: torch.Tensor, kin: dynamics.Kin, contacts, gain_scale=None,
                      mass_scale=None, gravity_scale=None, damping_scale=None,
@@ -228,25 +254,14 @@ def _substep_batched(model: M.Model, cfg: SimConfig, T: Tables, states: State,
         model, T.dyn, states, kin, T.diag, mass_scale=mass_scale, gravity_scale=gravity_scale,
         damping_scale=damping_scale, actor_scale=actor_scale, diag_parts=T.diag_parts)
 
-    if cfg.torque_control:
-        tau = actions * model.motor_gear * cfg.power_scale
-    else:
-        tau = dynamics.pd_torques_batched(model, T.dof, states, actions, h,
-                                          kd_scale=damping_scale)
-    limit = dynamics.limit_torques_batched(model, T.dof, states, cfg.limit_stiffness)
-    if gain_scale is None:
-        tau = tau + limit
-    else:   # stiffness randomization scales the whole actuation torque
-        tau = tau * (gain_scale[:, None] if gain_scale.dim() == 1 else gain_scale) + limit
-    tau_full = torch.zeros(Bn, nu, device=actions.device)
-    tau_full[:, rd:] = tau
+    tau, tau_full = _joint_torques(model, cfg, T, states, actions, h, gain_scale=gain_scale,
+                                   damping_scale=damping_scale)
     u_free_prop = I_w = None
     if P:
         u_free_prop, I_w = _free_props(model, states, h, gravity_scale)
 
-    contact_step = _aos_contact_step if cfg.solver.scheme == "pgs" else _zform_contact_step
-    u_new, body_forces = contact_step(model, cfg, T, states, contacts, M_bl, bias, Phi,
-                                      tau_full, u_free_prop, I_w, restitution)
+    u_new, body_forces = _contact_step_fn(cfg)(model, cfg, T, states, contacts, M_bl, bias, Phi,
+                                               tau_full, u_free_prop, I_w, restitution)
 
     u_new = u_new.clone()
     u_new[:, rd:nu] = torch.clamp(u_new[:, rd:nu], -cfg.max_dof_vel, cfg.max_dof_vel)

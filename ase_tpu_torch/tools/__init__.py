@@ -1,6 +1,8 @@
-"""Offline tools: importers, retargeting, playback rendering, and the
+"""Offline tools: importers, retargeting, playback rendering, the
 evaluation tools (``eval_llc_skills``, ``accept_drive``,
-``validate_learning``, ``validate_ase``) with the helpers they share."""
+``validate_learning``, ``validate_ase``) and the measurement tools
+(``trace_summary``, ``profile_epoch``, ``profile_tick``,
+``contact_stats``), with the helpers they share."""
 
 from __future__ import annotations
 

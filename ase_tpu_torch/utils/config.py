@@ -59,6 +59,9 @@ def get_args(argv=None) -> argparse.Namespace:
                    help="Low-level controller checkpoint of an HRL agent")
     p.add_argument("--output_path", type=str, default="output",
                    help="Directory of the training checkpoints")
+    p.add_argument("--experiment", type=str, default="Base",
+                   help="Experiment name: overrides the train config's run name, "
+                        "which names the checkpoint files")
     p.add_argument("--logdir", type=str, default="",
                    help="TensorBoard dir (default <output_path>/summaries)")
     p.add_argument("--randomize", action="store_true", help="Domain randomization")
@@ -96,6 +99,8 @@ def load_cfg(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         cfg["task"] = {"randomize": bool(args.randomize)}
 
     train_cfg = cfg_train["params"]["config"]
+    if args.experiment != "Base":
+        train_cfg["name"] = args.experiment
     train_cfg["num_actors"] = cfg["env"]["numEnvs"]
     if args.max_iterations > 0:
         train_cfg["max_epochs"] = args.max_iterations

@@ -6,7 +6,8 @@ The workload of bench.py: HumanoidAMPGetup on the sword-shield humanoid,
 the 87-clip Reallusion dataset, self-collision on, 4096 envs, horizon 32,
 minibatch min(16384, envs x horizon), resetChunk 512, and the ASEAgent's
 full PPO + AMP + ASE update at the shipped widths, built by
-``ase_tpu_torch.run``'s ``build_agent`` as the training CLI builds it, once
+``ase_tpu_torch.tools.profile_epoch.build_bench_agent`` through the
+training CLI's ``build_agent``, once
 in float32 (the shipped ``mixed_precision: false``, TF32 off) and once
 under mixed precision (``mixed_precision: true``, bench.py's default:
 bfloat16 products accumulated in float32), with the same seed and epochs,
@@ -29,16 +30,7 @@ import time
 
 import torch
 
-# the agent the training CLI builds (chip_smoke.py's train phase passes the
-# same flags); bench.py's self-collision and resetChunk 512 are the shipped
-# env config's own, and are checked, not set; mixed_precision is set per run
-ARGV = [
-    "--task", "HumanoidAMPGetup",
-    "--cfg_env", "humanoid_ase_sword_shield_getup.yaml",
-    "--cfg_train", "train/rlg/ase_humanoid.yaml",
-    "--motion_file", "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml",
-    "--seed", "0",
-]
+from ase_tpu_torch.tools.profile_epoch import build_bench_agent
 
 
 def main(argv=None):
@@ -73,19 +65,7 @@ def _run(args, mixed: bool, fall_states):
     """Train a fresh agent of the given precision: set-up, one warm-up
     epoch, then ``args.epochs`` timed epochs. Returns (its numbers, the
     fall states, for the next agent's env)."""
-    from ase_tpu_torch import run
-
-    def precision(cfg, cfg_train):
-        cfg_train["params"]["config"]["mixed_precision"] = mixed
-
-    agent, _, _ = run.build_agent(ARGV + [
-        "--num_envs", str(args.num_envs), "--horizon_length", str(args.horizon),
-        "--minibatch_size", str(min(16384, args.num_envs * args.horizon))], edit_cfg=precision)
-    dtype = agent.network.mu.compute_dtype
-    if not (agent.env.sim_cfg.enable_self_collision and agent.env.reset_chunk == 512
-            and dtype == (torch.bfloat16 if mixed else None)):
-        raise SystemExit("bench_torch.py runs bench.py's workload: self-collision on, "
-                         f"resetChunk 512, mixed_precision {mixed}")
+    agent = build_bench_agent(args.num_envs, args.horizon, mixed)
     if fall_states is not None:
         agent.env._fall_states = fall_states     # env construction, the same for both runs
     t0 = time.time()

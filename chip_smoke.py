@@ -17,13 +17,14 @@ Phases, each printed with its wall time against its budget:
               m, m2 and B, the kernels' generic instance; the
               factor-dominated m=1 at B=4096; a ragged B=129; n=8; the
               one-env engine.step's B=1 at n=37, m=72; the pendulum's n=1,
-              m=9, B=1), with its
+              m=9, B=1; tools.contact_stats' detection budget of 64: m=192
+              at B=1024), with its
               device time, its bound, the plain version's device time and a
               library yardstick's (CUDA events around a CUDA graph of 20
               calls, so host work in a wrapper cannot enter a time). These
               calls reuse one input set, which stays in the 50 MB L2 when
               it is small (``ms``, warm); ``cold_ms`` times the kernels at
-              the engine's shape, and back_solve at every size, on calls
+              the engine's shape and at m=192, and back_solve at every size, on calls
               that rotate over copies of the inputs holding more than
               COLD_BYTES, so each call finds L2 cold, as in the engine,
               where other work runs between the calls (at n=37 and n=34;
@@ -41,10 +42,16 @@ Phases, each printed with its wall time against its budget:
               shipped ASE LLC at 4096 envs for one chunk of STEPS control
               steps. The kernel launch counters are zeroed just before and
               read just after; obs, actions and rewards must be finite.
-5. profile -- one more control step under torch.profiler: device-busy
-              share, kernel launches per step and the kernels that take the
-              most device time (printed; "not measured" if the profiler
-              records no device time).
+5. profile -- ``tools.profile_tick``'s stage timing on the player's env,
+              state and last actions: FK, collision, dynamics and the
+              contact solve (the engine's stage functions called in
+              sequence, each with its calls a tick), the whole tick, the
+              control step (``env.step``) and ``reset_done``, each the
+              median CUDA-event ms of PROFILE_REPS calls with the kernel
+              launches of one call under torch.profiler; the control
+              step's ``tools.trace_summary`` (device busy over the span,
+              buckets, top kernels). The parts must be finite, with
+              launches, and sum to within [0.5, 1.5] x the tick.
 6. check   -- one engine tick on 8 of those envs, on the card (kernels) and
               on the CPU (plain versions), must agree within the tolerances
               of ``check_tick`` (shared with tests/test_torch_cuda.py).
@@ -99,7 +106,12 @@ Phases, each printed with its wall time against its budget:
               --max_iterations TRAIN_EPOCHS + 1``; its weights, Adam moments
               and steps, three normalizers and epoch must be bit-equal to
               the saved agent's; it trains one more epoch (TRAIN_LAUNCHES
-              launches each), and the directory is deleted.
+              launches each), and the directory is deleted. Then, after
+              every check above, ``tools.profile_epoch``'s window on the first agent: one
+              control step of its rollout and one minibatch update, each
+              traced into chiprun_out/profile_train/ and summed by
+              ``tools.trace_summary`` (both must record device time): the
+              buckets and the rollout's host share (1 - busy).
 9. train_bf16 -- the same training branch under ``mixed_precision: true``
               (bfloat16 dense layers over float32 parameters and heads) for
               TRAIN_BF16_EPOCHS epoch of CUT_HORIZON steps, the train phase's
@@ -116,6 +128,11 @@ Phases, each printed with its wall time against its budget:
               no 150-tick drop): finite stats, 256 latents, some fall
               states, exactly EVALSKILLS_LAUNCHES of chol_forward2 and
               back_solve; the stats printed as JSON.
+9c. contacts -- ``tools.contact_stats.main`` (CONTACTS_ARGV: 256 envs x 4
+              steps of random actions at its detection budget of 64, so the
+              kernels run at m = 192) from the train phase's fall states:
+              finite quantiles with p50 <= p99 <= max <= 64, exactly
+              CONTACTS_LAUNCHES of chol_forward2 and back_solve.
 10. strike -- ``ase_tpu_torch.run``'s player on HumanoidStrike: the shipped
               strike high-level controller over the shipped low-level
               controller at 4096 envs (one free prop each, the target box),
@@ -242,6 +259,7 @@ import tempfile
 import time
 
 STEPS = 16
+PROFILE_REPS = 5                 # profile phase: CUDA-event timed calls of each part (median)
 FALL_LAUNCHES = 150 * 2          # fall-state drop: 150 ticks x 2 substeps
 TOTAL_BUDGET_S = 570
 TRAIN_EPOCHS = 1
@@ -291,7 +309,7 @@ BUDGET_S = {"device": 60, "build": 120, "kernels": 120, "player": 360, "profile"
             "strike": 240, "strike_profile": 60, "strike_check": 60, "hrl_train": 300,
             "perturb": 240, "perturb_check": 60, "dr": 120, "dr_check": 60, "cache": 60,
             "pgs": 120, "pgs_check": 60, "viewmotion": 90, "multi": 150, "nccl": 30,
-            "savevideo": 90, "mocap": 90, "oracle": 75, "evalskills": 60}
+            "savevideo": 90, "mocap": 90, "oracle": 75, "evalskills": 60, "contacts": 30}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = "data/motions/reallusion_sword_shield/dataset_reallusion_sword_shield.yaml"
 HRL_ARGV = [
@@ -573,9 +591,10 @@ def kernels_phase():
     from ase_tpu_torch.ops import chol
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, rows34, rows1 = {}, {}, {}
+    rows, rows34, rows1, rows192 = {}, {}, {}, {}
     for (n, m, m2, B) in ((37, 72, 1, 4096), (34, 72, 1, 4096), (37, 1, 1, 4096),
-                          (37, 72, 1, 129), (8, 1, 1, 256), (37, 72, 1, 1), (1, 9, 1, 1)):
+                          (37, 72, 1, 129), (8, 1, 1, 256), (37, 72, 1, 1), (1, 9, 1, 1),
+                          CONTACTS_SHAPE):
         M, R, R2 = _spd(torch, n, m, m2, B, gen)
         L, Y, Y2 = chol.chol_forward(M, R, R2)
         L1, Y1 = chol.chol_forward(M, R)
@@ -605,10 +624,11 @@ def kernels_phase():
                            cuda_ms(torch, lambda: chol.back_solve_plain(L, Y2), 5)),
         }
         engine = (m, m2, B) == (72, 1, 4096) and n in (37, 34)
+        contacts = (n, m, m2, B) == CONTACTS_SHAPE
         # at B = 1 a cold rotation would take ~33,000 copies of the inputs
         cold = {} if B == 1 else {
             "back_solve": cold_ms(torch, chol.back_solve, (L, Y2), work["back_solve"][0])}
-        if engine:
+        if engine or contacts:
             cold["chol_forward2"] = cold_ms(torch, chol.chol_forward, (M, R, R2),
                                             work["chol_forward2"][0])
             cold["chol_forward"] = cold_ms(torch, chol.chol_forward, (M, R),
@@ -645,6 +665,8 @@ def kernels_phase():
                 (rows if n == 37 else rows34)[k] = row
             elif (n, B) == (37, 1):
                 rows1[k] = row
+            elif contacts:
+                rows192[k] = row
     for n, rs in ((37, rows), (34, rows34)):
         print(f"kernels (n={n}, m=72, m2=1, B=4096): " + "; ".join(
             f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
@@ -654,9 +676,16 @@ def kernels_phase():
     print("kernels at B = 1 (n=37, m=72, m2=1; the one-env engine.step): " + "; ".join(
         f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.6f}; plain {r['plain_ms']:.3f}, library "
         f"{r['library_ms']:.4f}, max err {r['max_abs_err']:.2g})" for k, r in rows1.items()))
+    print("kernels at the contact-statistics budget (n=37, m=192, m2=1, B=1024): " + "; ".join(
+        f"{k} {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+        f"{r['bound_by']}; plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, max err "
+        f"{r['max_abs_err']:.2g})" for k, r in rows192.items()))
     for k, r in rows.items():
         r["amp_humanoid"] = {f: rows34[k][f] for f in ("ms", "cold_ms", "plain_ms", "library_ms",
                                                        "max_abs_err", "bound_ms")}
+        r["contact_stats"] = {f: rows192[k][f] for f in ("ms", "cold_ms", "plain_ms",
+                                                         "library_ms", "max_abs_err", "bound_ms",
+                                                         "bound_by")}
         r["one_env"] = {f: rows1[k][f] for f in ("ms", "plain_ms", "library_ms", "max_abs_err",
                                                  "bound_ms", "bound_by")}
     return rows
@@ -725,40 +754,51 @@ def profile_phase(player, card, steps=1):
 
 
 def _profile(label, step, card, steps=1):
-    """Device-busy share and top kernels over ``steps`` calls of
-    ``step()``, one control step each; returns the kernel launches per
-    control step (None if the profiler records no device time). The
-    profiler's own host overhead lengthens the wall time, so the busy share
-    is a lower bound."""
+    """``steps`` calls of ``step()``, one control step each, under
+    torch.profiler, summed by ``tools.trace_summary``: device busy over the
+    span, launches and the top kernels per control step. Returns the kernel
+    launches per control step (None if the profiler records no device
+    time). The profiler's own host overhead lengthens the span, so the
+    busy share is a lower bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ase_tpu_torch.tools import trace_summary
+    from ase_tpu_torch.utils.profiling import profiled
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
-        print("profile: not measured (the profiler recorded no device time)")
+    _, prof, _ = profiled(lambda: [step() for _ in range(steps)], torch.device("cuda"))
+    s = trace_summary.summarize(prof, top=8)
+    print(trace_summary.report(s, f"profile of {label} over {steps} control steps ({card})",
+                               steps, top=8), flush=True)
+    if "busy_ms" not in s:
         return None
-    launches = sum(e.count for e in kernels)
-    print(f"profile of {label} over {steps} control steps ({card}): wall "
-          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-          f"({100 * busy_us / wall_us:.1f}%), {launches / steps:.0f} kernel launches per control step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d}x  "
-              f"{e.key[:90]}")
-    chol_us = {k: sum(e.self_device_time_total for e in kernels if k in e.key)
-               for k in ("chol_forward_kernel", "back_solve_kernel")}
-    print("  Cholesky kernels: " + ", ".join(
-        f"{k} {us / 1e3 / steps:.3f} ms/step" for k, us in chol_us.items())
-        + f", {100 * sum(chol_us.values()) / busy_us:.2f}% of device busy time")
-    return launches / steps
+    chol_ms = s["buckets"].get("custom", 0.0)
+    print(f"  Cholesky kernels: {chol_ms / steps:.3f} ms/step, "
+          f"{100 * chol_ms / s['busy_ms']:.2f}% of device busy time", flush=True)
+    return s["launches"] / steps
+
+
+def tick_parts_phase(player, card):
+    """``tools.profile_tick``'s stage timing on the player's env, state and
+    last actions: FK, collision, dynamics and the contact solve (each with
+    its calls a tick), the whole tick, the control step (``env.step``) and
+    ``reset_done``, each the median CUDA-event ms of PROFILE_REPS calls and
+    the launches of one profiled call; the control step's ``trace_summary``
+    printed. The parts must be finite, with launches, and their sum within
+    [0.5, 1.5] x the tick's ms (called in sequence they miss the tick's
+    overlap). Returns the stage times."""
+    from ase_tpu_torch.tools import profile_tick, trace_summary
+
+    t = profile_tick.stage_times(player.env, player.env_state, player.last_actions,
+                                 reps=PROFILE_REPS, top=8)
+    print(profile_tick.report(t) + f" ({card})", flush=True)
+    s = t["control_step"]["summary"]
+    print(trace_summary.report(s, f"profile of one {type(player.env).__name__} control step "
+                                  f"(env.step) ({card})", top=8), flush=True)
+    timed = list(t["parts"].values()) + [t[k] for k in ("tick", "control_step", "reset_done")]
+    if not all(math.isfinite(r["ms"]) and r["ms"] > 0 and r["launches"] for r in timed):
+        raise Failed(f"profile: a part without a finite time or launches: {profile_tick.report(t)}")
+    if not 0.5 <= t["parts_over_tick"] <= 1.5:
+        raise Failed(f"profile: the parts sum to {t['parts_over_tick']:.3f} of the tick")
+    return t
 
 
 def check_tick(model, cfg, state, targets, knobs=None):
@@ -1112,7 +1152,32 @@ def _train(card, rows, fall_states, out_dir):
     if not bool(torch.isfinite(env_state.obs).all()):
         raise Failed("non-finite observations after training")
     check_minibatch(agent)
+    _epoch_window(agent, env_state, card)   # after the checks: its update is not the epoch's
     return records, agent.env._fall_states
+
+
+def _epoch_window(agent, env_state, card):
+    """``tools.profile_epoch``'s window on the trained agent: one control
+    step of its rollout and one minibatch update, each traced into
+    chiprun_out/profile_train/ and summed by ``tools.trace_summary``; the
+    bucket rollup and the rollout's host share printed. Both windows must
+    record device time."""
+    from ase_tpu_torch.tools import profile_epoch, trace_summary
+
+    out_dir = os.path.join(REPO, "chiprun_out", "profile_train")
+    _, traced = profile_epoch.trace_window(agent, env_state, out_dir, control_steps=1,
+                                           minibatches=1, top=8)
+    for part, what in (("rollout", "one control step"), ("update", "one minibatch")):
+        s = traced[part]
+        if "busy_ms" not in s or not s["launches"]:
+            raise Failed(f"train window: the {part} trace recorded no device time")
+        label = (f"train window, {part} ({what}; host wall {s['wall_ms']:.1f} ms; "
+                 f"{os.path.relpath(s['trace'], REPO)}) ({card})")
+        print(trace_summary.report(s, label, top=8), flush=True)
+    roll = traced["rollout"]
+    print(f"train window: the rollout's host share {1 - roll['busy_share']:.3f} (1 - busy over "
+          f"the span); buckets " + ", ".join(f"{k} {v:.2f} ms" for k, v in roll["buckets"].items()),
+          flush=True)
 
 
 def _twin(agent, device, z, dtype=None):
@@ -2513,6 +2578,9 @@ PENDULUM_XML = """
 EVALSKILLS_ARGV = ["--envs", "256", "--steps", "16", "--getup-envs", "256",
                    "--getup-steps", "32"]
 EVALSKILLS_LAUNCHES = (16 + 32) * 2 * 2          # control steps x 2 ticks x 2 substeps
+CONTACTS_ARGV = ["--envs", "256", "--steps", "4"]   # tools.contact_stats at its budget of 64
+CONTACTS_LAUNCHES = 4 * 2 * 2                     # control steps x 2 ticks x 2 substeps
+CONTACTS_SHAPE = (37, 3 * 64, 1, 1024)           # (n, m, m2, B) of its contact solve at 1024 envs
 
 
 def _random_poses(model, B, seed, device):
@@ -2813,6 +2881,34 @@ def evalskills_phase(card, fall_states):
     return launched
 
 
+def contacts_phase(card, fall_states):
+    """``tools.contact_stats.main`` (CONTACTS_ARGV, its detection budget of
+    64: the kernels at m = 192) on the train phase's fall states, so no
+    150-tick drop: finite quantiles with p50 <= p99 <= max <= 64, and
+    exactly CONTACTS_LAUNCHES of chol_forward2 and back_solve. Returns the
+    launches."""
+    import torch
+    from ase_tpu_torch.ops import chol
+    from ase_tpu_torch.tools import contact_stats
+
+    chol.reset_launches()
+    t0 = time.time()
+    stats = contact_stats.main(CONTACTS_ARGV + ["--device", "cuda"], fall_states=fall_states)
+    torch.cuda.synchronize()
+    launched = dict(chol.LAUNCHES)
+    q = stats["quantiles"]
+    if not (all(math.isfinite(v) for v in q.values())
+            and q["p50"] <= q["p99"] <= stats["max"] <= stats["max_contacts"] == 64):
+        raise Failed(f"contacts: quantiles {q}, max {stats['max']}")
+    want = {"chol_forward2": CONTACTS_LAUNCHES, "back_solve": CONTACTS_LAUNCHES,
+            "chol_forward": 0}
+    if launched != want:
+        raise Failed(f"contacts launched {launched}, want {want}")
+    print(f"contacts: {time.time() - t0:.1f} s, launches {launched}; " + json.dumps(stats)
+          + f" ({card})", flush=True)
+    return launched
+
+
 def main():
     t_start = time.time()
     signal.signal(signal.SIGALRM, _timeout)
@@ -2826,7 +2922,7 @@ def main():
     from ase_tpu_torch.motion import motion_lib as ml
     hits_before = ml.CACHE["hits"]
     launches, player = phase("player", lambda: player_phase(card), t_start)
-    phase("profile", lambda: profile_phase(player, card), t_start)
+    phase("profile", lambda: tick_parts_phase(player, card), t_start)
     phase("check", lambda: check_phase(player), t_start)
     fall_states = player.env._fall_states
     del player
@@ -2845,6 +2941,7 @@ def main():
     torch.cuda.empty_cache()
     evalskills_launches = phase("evalskills", lambda: evalskills_phase(card, fall_states),
                                 t_start)
+    contacts_launches = phase("contacts", lambda: contacts_phase(card, fall_states), t_start)
     del fall_states
     torch.cuda.empty_cache()
     strike_launches, strike_player, _ = phase("strike", lambda: hrl_phase(
@@ -2904,7 +3001,8 @@ def main():
                     multi_launches=multi_launches[k], pgs_launches=pgs_launches[k],
                     viewmotion_launches=view_launches[k], savevideo_launches=video_launches[k],
                     mocap_launches=mocap_launches[k], oracle_launches=oracle_launches[k],
-                    evalskills_launches=evalskills_launches[k], on_path=k != "chol_forward",
+                    evalskills_launches=evalskills_launches[k],
+                    contacts_launches=contacts_launches[k], on_path=k != "chol_forward",
                     **rows[k])
                for k in ("chol_forward2", "back_solve", "chol_forward")]
     print(f"total: {time.time() - t_start:.1f} s (limit {TOTAL_BUDGET_S} s)")

@@ -38,10 +38,12 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,B", [(37, 72, 4096), (37, 72, 129), (8, 1, 256),
-                                   (48, 72, 33), (37, 1, 4096)])
+                                   (48, 72, 33), (37, 1, 4096), (37, 192, 1024)])
 def test_kernels_match_plain_versions_on_the_card(cuda, n, m, B):
     """n = 37 runs the forward kernel's unrolled instance, other n its generic
-    one; (48, 72, 33) is n at the kernel's limit with a ragged last block."""
+    one; (48, 72, 33) is n at the kernel's limit with a ragged last block;
+    (37, 192, 1024) is the contact-statistics tool's detection budget of 64
+    (m = 3 x 64) at its 1024 envs."""
     M, R, R2 = (torch.as_tensor(x, device=cuda) for x in _system(n, m, 1, B, seed=B))
     before = dict(chol.LAUNCHES)
     L, Y, Y2 = chol.chol_forward(M, R, R2)
